@@ -13,6 +13,9 @@ Seven kernels keep large arrays in shared memory. Their launchers read the
 card's opt-in shared memory per block and, for shapes past it, launch a
 global-memory variant of the same kernel (the same arithmetic in the same
 order): those launches count under LAUNCHES[name + "_global"] (GLOBAL).
+The Gibbs kernels (gibbs_sweep, noise_step, joint_step) also take their
+global-LL variant where it lets every exp of the step be cached in shared
+memory (H64 from 13 to 24 samples).
 
 The kernels are compiled at first use by torch.utils.cpp_extension.load
 (ninja runs one compiler per source, in parallel) for sm_90a into BUILD_DIR

@@ -5,23 +5,31 @@
 // (bayestyper_tpu/model/gibbs.py:1842-1935), whose body is
 // _gibbs_iteration + _sample_outcomes + sample_frequencies. There, every
 // step re-read the [B, C, ch, S, O] LL and tally carries from HBM. Here a
-// team (a warp for O <= 128, a block above) owns one pair for the whole
-// scan: its LL [S, O] (113 KB at H = 64, S = 13), frequencies and scratch
-// live in shared memory, the per-iteration key is fold_in(chain_key, t), and
-// after burn-in each drawn outcome adds one to the int32 tally in device
-// memory. Bound: operations (the S*O exp per iteration and the lgamma/log
-// of the frequency resample), not bytes — the LL is read once.
+// block owns consecutive pairs (several for O <= 128, one above; see
+// gibbs_step.cuh) for the whole scan: their LL [S, O] (113 KB at H = 64,
+// S = 13), frequencies and scratch live in shared memory, the per-iteration
+// key is fold_in(chain_key, t), and after burn-in each drawn outcome adds
+// one to a uint16 tally [pairs, S, O] in shared memory, added into the
+// int32 tally in device memory once at the end of the launch (a launch runs
+// at most 65,535 iterations on it). Bound: operations (the S*O exp per
+// iteration, the threefry hashes and the lgamma/log of the frequency
+// resample), not bytes — the LL is read once.
 //
-// Above the card's shared memory (H64 from S = 25 on the H100) the
-// global-memory variants (bt_launch_shape layouts 1-2) read each pair's LL
-// in place from the input, which the scan never writes, and the outcome
-// tables from device memory; the LL is then read from L2/HBM at every
-// logit instead of once.
+// Where the LL and the exp cache do not both fit in shared memory (H64
+// from S = 13 on the H100) the global-memory variants (bt_launch_shape
+// layouts 1-2) read each pair's LL in place from the input, which the scan
+// never writes: once per step where every exp is cached (H64 to S = 24),
+// else at every logit of the two-level draw, from L2/HBM. Where the tally
+// does not fit beside the rest, each drawn outcome adds one to the device
+// tally directly.
 #include "gibbs_step.cuh"
 #include "launchers.h"
 
+#define BT_TALLY16_MAX_ITERS 65535
+
+// at most 1,024 threads: <= 64 registers a thread
 template <int kLayout>
-__global__ void bt_gibbs_sweep_kernel(
+__global__ void __launch_bounds__(1024) bt_gibbs_sweep_kernel(
     const float* __restrict__ ll, const signed char* __restrict__ ploidy,
     const bool* __restrict__ hap_valid, const float* __restrict__ sparsity,
     const bool* __restrict__ use_sparse,
@@ -31,62 +39,63 @@ __global__ void bt_gibbs_sweep_kernel(
     int* tally, int* osel_out, float* scratch, long long n_pairs, int ch,
     BtDims d, BtLaunch l, int t0, int t1, int burn_in) {
   extern __shared__ float smem[];
-  const int *s_oa = oa, *s_ob = ob;
-  float* teams = smem;
-  if (kLayout == 0) {
-    int *a, *b;
-    teams = bt_load_outcomes(oa, ob, d.O, smem, &a, &b);
-    s_oa = a;
-    s_ob = b;
-    __syncthreads();
+  const long long pair0 = (long long)blockIdx.x * l.pairs_per_block;
+  const long long left = n_pairs - pair0;
+  const BtBlock bk{(int)threadIdx.x, (int)blockDim.x,
+                   (int)(left < l.pairs_per_block ? left : l.pairs_per_block)};
+  const int SO = d.S * d.O;
+  const float* ll_b = ll + pair0 * SO;
+
+  BtOutcomes oc{nullptr, oa, ob};
+  float* arrays = smem;
+  if (l.tables_smem) {
+    oc = bt_load_outcomes(oa, ob, d.O, reinterpret_cast<int*>(smem));
+    arrays += bt_outcome_words(d.O);
   }
-
-  const int team = l.block_team ? 0 : threadIdx.x / 32;
-  const BtTeam tm{l.block_team ? (int)threadIdx.x : (int)(threadIdx.x % 32),
-                  l.team_size, l.block_team};
-  const long long pair = (long long)blockIdx.x * l.teams_per_block + team;
-  if (pair >= n_pairs) return;
-  const long long cl = pair / ch;
-  const int chn = (int)(pair % ch);
-
-  const float* ll_p = ll + pair * d.S * d.O;
-  BtTeamSmem sm;
+  BtPairs sm;
   if (kLayout == 0) {
-    sm = bt_carve(teams + team * bt_team_words(d), d);
-    for (int i = tm.lane; i < d.S * d.O; i += tm.size) sm.ll[i] = ll_p[i];
+    sm = bt_carve_pairs(arrays + l.pairs_per_block * SO, arrays, d, bk.np);
+    for (int i = bk.tid; i < bk.np * SO; i += bk.nt) sm.ll[i] = ll_b[i];
   } else {
-    float* base = kLayout == 1 ? teams + team * bt_team_small_words(d)
-                               : scratch + pair * l.team_scratch;
-    sm = bt_carve_at(base, const_cast<float*>(ll_p), d);
+    if (kLayout == 2) arrays = scratch + pair0 * l.team_scratch;
+    sm = bt_carve_pairs(arrays, const_cast<float*>(ll_b), d, bk.np);
   }
-  bt_load_pair(tm, sm, d, ploidy + cl * d.S, hap_valid + cl * d.H,
-               freqs + pair * d.H);
-  const BtKey chain_key = bt_fold_in(
-      bt_fold_in(BtKey{base_keys[2 * chn], base_keys[2 * chn + 1]},
-                 (uint32_t)cluster_id[cl]),
-      fold[chn]);
-  const float sp = sparsity[cl];
-  const bool usp = use_sparse[cl];
-  tm.sync();
+  unsigned short* t16 =
+      l.tally_smem ? reinterpret_cast<unsigned short*>(smem + l.tally_offset)
+                   : nullptr;
+  if (t16 != nullptr)
+    for (int i = bk.tid; i < bk.np * SO; i += bk.nt) t16[i] = 0;
+  bt_load_pairs(bk, sm, d, pair0, ch, ploidy, hap_valid, freqs, sparsity,
+                use_sparse, cluster_id, base_keys, fold);
+  __syncthreads();
 
+  const int rows = bk.np * d.S;
   for (int t = t0; t < t1; ++t) {
-    bt_gibbs_step(tm, sm, d, s_oa, s_ob, sp, usp,
-                  bt_fold_in(chain_key, (uint32_t)t));
+    bt_gibbs_step(bk, sm, d, oc, t);
     if (tally != nullptr && t >= burn_in) {
-      for (int s = tm.lane; s < d.S; s += tm.size)
-        tally[(pair * d.S + s) * d.O + sm.osel[s]] += 1;
+      // one thread per (pair, sample); the next write of osel is three
+      // barriers into the next step
+      for (int row = bk.tid; row < rows; row += bk.nt) {
+        const int o = row * d.O + sm.osel[row];
+        if (t16 != nullptr) t16[o] += 1;
+        else tally[pair0 * SO + o] += 1;
+      }
     }
-    tm.sync();
   }
-  for (int h = tm.lane; h < d.H; h += tm.size) freqs[pair * d.H + h] = sm.freqs[h];
+  __syncthreads();
+  bt_store_freqs(bk, sm, d, pair0, freqs);
   if (osel_out != nullptr) {
-    for (int s = tm.lane; s < d.S; s += tm.size)
-      osel_out[pair * d.S + s] = sm.osel[s];
+    for (int row = bk.tid; row < rows; row += bk.nt)
+      osel_out[pair0 * d.S + row] = sm.osel[row];
+  }
+  if (t16 != nullptr) {
+    for (int i = bk.tid; i < bk.np * SO; i += bk.nt)
+      if (t16[i] != 0) tally[pair0 * SO + i] += t16[i];
   }
 }
 
 int bt_gibbs_layout(int S, int O, int H, bool ll_written, int64_t* scratch) {
-  const BtLaunch l = bt_launch_shape(bt_dims(S, O, H), ll_written);
+  const BtLaunch l = bt_launch_shape(S, O, H, ll_written);
   *scratch = l.ll_scratch + l.team_scratch;
   return l.layout;
 }
@@ -105,7 +114,7 @@ static cudaError_t bt_gibbs_sweep_launch(
   if (err != cudaSuccess) return err;
   err = bt_fit_team(bt_gibbs_sweep_kernel<kLayout>, &l);
   if (err != cudaSuccess) return err;
-  const long long blocks = (n_pairs + l.teams_per_block - 1) / l.teams_per_block;
+  const long long blocks = (n_pairs + l.pairs_per_block - 1) / l.pairs_per_block;
   bt_gibbs_sweep_kernel<kLayout><<<(unsigned)blocks, l.threads, l.smem_bytes,
                                    stream>>>(
       ll, ploidy, hap_valid, sparsity, use_sparse, cluster_id, base_keys,
@@ -122,9 +131,11 @@ cudaError_t bt_gibbs_sweep(const float* ll, const int8_t* ploidy,
                            int* tally, int* osel_out, float* scratch,
                            int64_t n_clusters, int ch, int S, int O, int H,
                            int t0, int t1, int burn_in, cudaStream_t stream) {
-  const BtDims d = bt_dims(S, O, H);
-  const BtLaunch l = bt_launch_shape(d, false);
   const long long n_pairs = n_clusters * ch;
+  const bool tally16 = tally != nullptr && t1 > burn_in &&
+                       t1 - (t0 > burn_in ? t0 : burn_in) <= BT_TALLY16_MAX_ITERS;
+  const BtLaunch l = bt_launch_shape(S, O, H, false, n_pairs, tally16);
+  const BtDims d = l.d;
   if (n_pairs == 0) return cudaSuccess;
   if (l.layout < 0 || (l.layout == 2 && scratch == nullptr))
     return cudaErrorInvalidValue;

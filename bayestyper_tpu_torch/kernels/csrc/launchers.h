@@ -24,6 +24,21 @@ inline int bt_smem_optin() {
   return bytes;
 }
 
+// The current device's number of SMs, read once per device.
+inline int bt_sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = 1;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      n < 1)
+    return 1;
+  if (dev >= 0 && dev < 64) cached[dev] = n;
+  return n;
+}
+
 // The layout a kernel with a global-memory variant launches with (see each
 // .cu): 0 its shared-memory layout, 1 or 2 a variant that keeps its large
 // arrays in device memory, -1 a shape that not even the variant can run.

@@ -48,7 +48,7 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
   extern __shared__ float smem[];
   const int g = blockIdx.x / ch;
   const int x = blockIdx.x % ch;
-  const BtTeam tm{(int)threadIdx.x, (int)blockDim.x, true};
+  const BtBlock bk{(int)threadIdx.x, (int)blockDim.x, 1};
   // layout 0: the team (LL first) in shared memory; 1: the LL at the
   // team's scratch row, the rest shared; 2: all of it in the scratch row
   float* tbase = smem;
@@ -67,14 +67,15 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
       const BtNestedLevel& L = lv[gmem[2 * m]];
       const int c = gmem[2 * m + 1];
       const BtDims d = bt_dims(S, L.O, L.H);
-      const BtTeamSmem sm =
-          kLayout == 0 ? bt_carve(smem, d) : bt_carve_at(tbase, llbase, d);
+      const BtPairs sm =
+          kLayout == 0 ? bt_carve_pairs(smem + d.S * d.O, smem, d, 1)
+                       : bt_carve_pairs(tbase, llbase, d, 1);
       const long long pair = (long long)c * ch + x;
       const int Q = L.Q, O = L.O, H = L.H;
 
       // ---- ploidy, frequencies, static LL ----
       const int plv = L.parent_level[c];
-      for (int s = tm.lane; s < S; s += tm.size) {
+      for (int s = bk.tid; s < S; s += bk.nt) {
         int pl = L.ploidy[(long long)c * S + s];
         if (plv >= 0) {
           const BtNestedLevel& P = lv[plv];
@@ -83,16 +84,16 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
         }
         sm.ploidy[s] = pl;
       }
-      for (int h = tm.lane; h < H; h += tm.size) {
+      for (int h = bk.tid; h < H; h += bk.nt) {
         sm.hvalid[h] = L.hap_valid[(long long)c * H + h];
         sm.freqs[h] = L.freqs[pair * H + h];
       }
       const float* llp = L.ll + pair * S * O;
-      for (int i = tm.lane; i < S * O; i += tm.size) sm.ll[i] = llp[i];
+      for (int i = bk.tid; i < S * O; i += bk.nt) sm.ll[i] = llp[i];
 
       // ---- shared k-mers at the pool's current state ----
       if (Q > 0) {
-        for (int i = tm.lane; i < Q * S; i += tm.size) {
+        for (int i = bk.tid; i < Q * S; i += bk.nt) {
           const int q = i / S, s = i % S;
           const long long cq = (long long)c * Q + q;
           const int o_old = __ldcg(L.ocur + pair * S + s);
@@ -101,10 +102,10 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
           const int ext = bt_pool_at(pool, L.sh_slot[cq], x, s, ch, S) - own;
           reinterpret_cast<int*>(scratch)[i] = L.sh_counts[cq * S + s] > 0 ? ext : 0;
         }
-        tm.sync();
+        __syncthreads();
         const bool* wsh = L.sh_w + pair * Q;
         const int M = L.mmax + 1;
-        for (int i = tm.lane; i < S * (O - 1); i += tm.size) {
+        for (int i = bk.tid; i < S * (O - 1); i += bk.nt) {
           const int s = i / (O - 1), o = i % (O - 1);
           float acc = 0.0f;
           for (int q = 0; q < Q; ++q) {
@@ -117,21 +118,25 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
           }
           sm.ll[s * O + o] += acc;
         }
-        tm.sync();
+        __syncthreads();
       }
 
       // ---- the Gibbs step ----
-      const BtKey chain_key = bt_fold_in(
-          bt_fold_in(BtKey{L.key0, L.key1}, (uint32_t)L.cluster_id[c]),
-          (uint32_t)x);
-      bt_gibbs_step(tm, sm, d, L.oa, L.ob, L.sparsity[c], L.use_sparse[c],
-                    bt_fold_in(chain_key, (uint32_t)t));
-      tm.sync();
-      for (int h = tm.lane; h < H; h += tm.size) L.freqs[pair * H + h] = sm.freqs[h];
+      if (bk.tid == 0) {
+        bt_set_key(sm, 0, BT_K_CHAIN,
+                   bt_fold_in(bt_fold_in(BtKey{L.key0, L.key1},
+                                         (uint32_t)L.cluster_id[c]),
+                              (uint32_t)x));
+        sm.fsc[BT_F_SPARSITY] = L.sparsity[c];
+        sm.isc[BT_I_SPARSE] = L.use_sparse[c];
+      }
+      __syncthreads();
+      bt_gibbs_step(bk, sm, d, BtOutcomes{nullptr, L.oa, L.ob}, t);
+      for (int h = bk.tid; h < H; h += bk.nt) L.freqs[pair * H + h] = sm.freqs[h];
 
       // ---- pool update and the MAC sibling fold ----
       if (Q > 0) {
-        for (int i = tm.lane; i < Q * S; i += tm.size) {
+        for (int i = bk.tid; i < Q * S; i += bk.nt) {
           const int q = i / S, s = i % S;
           const long long cq = (long long)c * Q + q;
           const int own = L.sh_dip[cq * O + sm.osel[s]];
@@ -142,7 +147,7 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
         }
         __syncthreads();
         if (L.mac_acc != nullptr && t >= burn_in) {
-          for (int i = tm.lane; i < Q * S; i += tm.size) {
+          for (int i = bk.tid; i < Q * S; i += bk.nt) {
             const int q = i / S, s = i % S;
             const long long cq = (long long)c * Q + q;
             const int ext = L.sh_valid[cq]
@@ -154,9 +159,9 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
             const float vd = cnt / fmaxf(ms + (float)ext, 1.0f);
             scratch[i] = (vd - vs) * (L.sh_w[pair * Q + q] ? 1.0f : 0.0f);
           }
-          tm.sync();
+          __syncthreads();
           const int V = L.V, A = L.A, he = H + 1;
-          for (int i = tm.lane; i < S * V; i += tm.size) {
+          for (int i = bk.tid; i < S * V; i += bk.nt) {
             const int s = i / V, v = i % V;
             const int o = sm.osel[s];
             float contrib[2];
@@ -181,7 +186,7 @@ __global__ void bt_nested_sweep_kernel(const BtNestedLevel* __restrict__ lv,
       }
 
       // ---- current outcome and tally ----
-      for (int s = tm.lane; s < S; s += tm.size) {
+      for (int s = bk.tid; s < S; s += bk.nt) {
         const int o = sm.osel[s];
         L.ocur[pair * S + s] = o;
         if (t >= burn_in) L.tally[(pair * S + s) * O + o] += 1;

@@ -5,28 +5,31 @@
 // tally[pair, s, o_sel] for t >= burn_in (the joint chains' genotype
 // tallies, gibbs.py:2207-2215).
 //
-// Per launch a team per pair (a warp for O <= 128, a block above; see
-// bt_launch_shape) builds its LL [S, O] in shared memory from llg/a/b at
-// its chain's current rates (ll = llg + a*log(r) - b*r, the null outcome
-// zeroed), runs the Gibbs step shared with gibbs_sweep, and atomicAdds
-// (int)(a_sel * cv) and (int)(b_sel * cv) into count_sum/num_obs [ch, S]:
-// integer atomics keep the sums exact in any order. One thread owns each
-// (pair, s), so the tally increment needs no atomic. The rate update that
-// reads count_sum/num_obs is noise_rates.cu, launched after every class's
-// step on the same stream. Bound: bytes — llg, a and b are read once per
-// iteration.
+// Per launch a block of consecutive pairs (several for O <= 128, one above;
+// see gibbs_step.cuh) builds their LL [S, O] in shared memory from llg/a/b
+// at each chain's current rates (ll = llg + a*log(r) - b*r, the null
+// outcome zeroed), reading the block's span of llg, a and b in one
+// coalesced pass; runs the Gibbs step shared with gibbs_sweep; and
+// atomicAdds (int)(a_sel * cv) and (int)(b_sel * cv) into count_sum/num_obs
+// [ch, S]: integer atomics keep the sums exact in any order. One thread
+// owns each (pair, s), so the tally increment needs no atomic. The rate
+// update that reads count_sum/num_obs is noise_rates.cu, launched after
+// every class's step on the same stream. Bound: bytes — llg, a and b are
+// read once per iteration.
 //
-// Above the card's shared memory the global-memory variants (layouts 1-2
-// of bt_launch_shape) build the LL in a caller-allocated [pairs, S, O]
-// scratch in device memory instead — the same expression written once and
-// read back, so the bits are the shared layout's (recomputing it at every
-// logit would read llg, a and b three times per iteration).
+// Where the LL and the exp cache do not both fit in shared memory (H64
+// from S = 13) the global-memory variants (layouts 1-2 of bt_launch_shape)
+// build the LL in a caller-allocated [pairs, S, O] scratch in device
+// memory instead — the same expression written once and read back, so the
+// bits are the shared layout's (recomputing it at every logit would read
+// llg, a and b three times per iteration).
 #pragma once
 
 #include "gibbs_step.cuh"
 
+// at most 1,024 threads: <= 64 registers a thread
 template <bool kTally, int kLayout>
-__global__ void bt_noise_pair_kernel(
+__global__ void __launch_bounds__(1024) bt_noise_pair_kernel(
     const float* __restrict__ llg, const float* __restrict__ a,
     const float* __restrict__ b, const float* __restrict__ cv,
     const float* __restrict__ log_r, const float* __restrict__ rates,
@@ -38,64 +41,59 @@ __global__ void bt_noise_pair_kernel(
     int* count_sum, int* num_obs, int* tally, int* osel_out, float* scratch,
     long long n_pairs, int ch, BtDims d, BtLaunch l, int t, int burn_in) {
   extern __shared__ float smem[];
-  const int *s_oa = oa, *s_ob = ob;
-  float* teams = smem;
-  if (kLayout == 0) {
-    int *sa, *sb;
-    teams = bt_load_outcomes(oa, ob, d.O, smem, &sa, &sb);
-    s_oa = sa;
-    s_ob = sb;
-    __syncthreads();
-  }
+  const long long pair0 = (long long)blockIdx.x * l.pairs_per_block;
+  const long long left = n_pairs - pair0;
+  const BtBlock bk{(int)threadIdx.x, (int)blockDim.x,
+                   (int)(left < l.pairs_per_block ? left : l.pairs_per_block)};
+  const int S = d.S, O = d.O, SO = S * O;
 
-  const int team = l.block_team ? 0 : threadIdx.x / 32;
-  const BtTeam tm{l.block_team ? (int)threadIdx.x : (int)(threadIdx.x % 32),
-                  l.team_size, l.block_team};
-  const long long pair = (long long)blockIdx.x * l.teams_per_block + team;
-  if (pair >= n_pairs) return;
-  BtTeamSmem sm;
+  BtOutcomes oc{nullptr, oa, ob};
+  float* arrays = smem;
+  if (l.tables_smem) {
+    oc = bt_load_outcomes(oa, ob, O, reinterpret_cast<int*>(smem));
+    arrays += bt_outcome_words(O);
+  }
+  BtPairs sm;
   if (kLayout == 0) {
-    sm = bt_carve(teams + team * bt_team_words(d), d);
+    sm = bt_carve_pairs(arrays + l.pairs_per_block * SO, arrays, d, bk.np);
   } else {
-    float* own = scratch + pair * (l.ll_scratch + l.team_scratch);
-    float* base = kLayout == 1 ? teams + team * bt_team_small_words(d)
-                               : own + l.ll_scratch;
-    sm = bt_carve_at(base, own, d);
+    // the scratch: the LL rows [pairs, ll_scratch], then the pairs' arrays
+    // [pairs, team_scratch] (layout 2)
+    if (kLayout == 2)
+      arrays = scratch + n_pairs * l.ll_scratch + pair0 * l.team_scratch;
+    sm = bt_carve_pairs(arrays, scratch + pair0 * l.ll_scratch, d, bk.np);
   }
-  const long long cl = pair / ch;
-  const int chn = (int)(pair % ch);
-  const int S = d.S, O = d.O;
 
-  const long long base = pair * S * O;
-  for (int i = tm.lane; i < S * O; i += tm.size) {
-    const int s = i / O, o = i % O;
-    const float part = o == O - 1 ? 0.0f
-                                  : a[base + i] * log_r[chn * S + s] -
-                                        b[base + i] * rates[chn * S + s];
+  bt_load_pairs(bk, sm, d, pair0, ch, ploidy, hap_valid, freqs, sparsity,
+                use_sparse, cluster_id, base_keys, fold);
+  __syncthreads();
+  const long long base = pair0 * SO;
+  for (BtRowCol it(bk.tid, bk.nt, O); it.r < bk.np * S; it.next()) {
+    const int i = it.r * O + it.c, p = d.dS(it.r);
+    const int rs = sm.isc[p * BT_NISC + BT_I_CHAIN] * S + (it.r - p * S);
+    const float part = it.c == O - 1
+                           ? 0.0f
+                           : a[base + i] * log_r[rs] - b[base + i] * rates[rs];
     sm.ll[i] = llg[base + i] + part;
   }
-  bt_load_pair(tm, sm, d, ploidy + cl * S, hap_valid + cl * d.H,
-               freqs + pair * d.H);
-  const BtKey chain_key = bt_fold_in(
-      bt_fold_in(BtKey{base_keys[2 * chn], base_keys[2 * chn + 1]},
-                 (uint32_t)cluster_id[cl]),
-      fold[chn]);
-  tm.sync();
+  __syncthreads();
 
-  bt_gibbs_step(tm, sm, d, s_oa, s_ob, sparsity[cl], use_sparse[cl],
-                bt_fold_in(chain_key, (uint32_t)t));
+  bt_gibbs_step(bk, sm, d, oc, t);
 
-  const float v = cv[cl];
-  for (int s = tm.lane; s < S; s += tm.size) {
-    const int o = sm.osel[s];
-    const int a_sel = (int)(a[base + s * O + o] * v);
-    const int b_sel = (int)(b[base + s * O + o] * v);
+  for (int row = bk.tid; row < bk.np * S; row += bk.nt) {
+    const int p = d.dS(row), s = row - p * S;
+    const int chn = sm.isc[p * BT_NISC + BT_I_CHAIN];
+    const int o = sm.osel[row];
+    const float v = cv[(pair0 + p) / ch];
+    const long long at = base + (long long)row * O + o;
+    const int a_sel = (int)(a[at] * v);
+    const int b_sel = (int)(b[at] * v);
     if (a_sel != 0) atomicAdd(count_sum + chn * S + s, a_sel);
     if (b_sel != 0) atomicAdd(num_obs + chn * S + s, b_sel);
-    if (kTally && t >= burn_in) tally[base + s * O + o] += 1;
-    if (osel_out != nullptr) osel_out[pair * S + s] = o;
+    if (kTally && t >= burn_in) tally[at] += 1;
+    if (osel_out != nullptr) osel_out[pair0 * S + row] = o;
   }
-  for (int h = tm.lane; h < d.H; h += tm.size) freqs[pair * d.H + h] = sm.freqs[h];
+  bt_store_freqs(bk, sm, d, pair0, freqs);
 }
 
 // Host side of both launchers: layout, shared-memory opt-in, grid, launch.
@@ -114,7 +112,7 @@ cudaError_t bt_noise_pair_launch_as(
   if (err != cudaSuccess) return err;
   err = bt_fit_team(bt_noise_pair_kernel<kTally, kLayout>, &l);
   if (err != cudaSuccess) return err;
-  const long long blocks = (n_pairs + l.teams_per_block - 1) / l.teams_per_block;
+  const long long blocks = (n_pairs + l.pairs_per_block - 1) / l.pairs_per_block;
   bt_noise_pair_kernel<kTally, kLayout><<<(unsigned)blocks, l.threads,
                                           l.smem_bytes, stream>>>(
       llg, a, b, cv, log_r, rates, ploidy, hap_valid, sparsity, use_sparse,
@@ -132,9 +130,9 @@ cudaError_t bt_noise_pair_launch(
     const int* oa, const int* ob, float* freqs, int* count_sum, int* num_obs,
     int* tally, int* osel_out, float* scratch, int64_t n_clusters, int ch,
     int S, int O, int H, int t, int burn_in, cudaStream_t stream) {
-  const BtDims d = bt_dims(S, O, H);
-  const BtLaunch l = bt_launch_shape(d, true);
   const long long n_pairs = n_clusters * ch;
+  const BtLaunch l = bt_launch_shape(S, O, H, true, n_pairs);
+  const BtDims d = l.d;
   if (n_pairs == 0) return cudaSuccess;
   if (l.layout < 0 || (l.layout > 0 && scratch == nullptr))
     return cudaErrorInvalidValue;

@@ -86,20 +86,35 @@ __device__ __forceinline__ float bt_normal(BtKey k, uint32_t i) {
   return 1.41421356f * bt_erfinv(u);
 }
 
-// ops/sampling.fixed_round_gamma for element e of n (alpha at that element)
-__device__ __forceinline__ float bt_fixed_round_gamma(BtKey key, float alpha,
-                                                      int e, int n) {
+// The first round's normal and uniform of fixed_round_gamma's element e
+// (round r draws index r * n + e).
+__device__ __forceinline__ float bt_gamma_normal0(BtKey k_norm, int e) {
+  return bt_normal(k_norm, (uint32_t)e);
+}
+__device__ __forceinline__ float bt_gamma_uniform0(BtKey k_unif, int e) {
+  return bt_uniform(k_unif, (uint32_t)e, 1e-12f, 1.0f);
+}
+
+// ops/sampling.fixed_round_gamma for element e of n (alpha at that element),
+// from the three keys it splits its key into: fold_in(key, 0), (key, 1) and
+// (key, 2), and its first round's normal x0 and uniform u0
+// (bt_gamma_normal0, bt_gamma_uniform0). A caller drawing several elements
+// derives the keys once, and may draw the first round ahead.
+__device__ __forceinline__ float bt_fixed_round_gamma_keys(BtKey k_boost,
+                                                           BtKey k_norm,
+                                                           BtKey k_unif,
+                                                           float alpha, int e,
+                                                           int n, float x0,
+                                                           float u0) {
   const int kRounds = 6;
-  const BtKey k_boost = bt_fold_in(key, 0), k_norm = bt_fold_in(key, 1),
-              k_unif = bt_fold_in(key, 2);
   const float a_eff = alpha < 1.0f ? alpha + 1.0f : alpha;
   const float d = a_eff - 0.333333343f;
   const float c = 1.0f / sqrtf(9.0f * d);
   float sample = a_eff;  // mean fallback when no round accepts
   for (int r = 0; r < kRounds; ++r) {
     const uint32_t idx = (uint32_t)(r * n + e);
-    const float x = bt_normal(k_norm, idx);
-    const float u = bt_uniform(k_unif, idx, 1e-12f, 1.0f);
+    const float x = r == 0 ? x0 : bt_normal(k_norm, idx);
+    const float u = r == 0 ? u0 : bt_uniform(k_unif, idx, 1e-12f, 1.0f);
     const float t = 1.0f + c * x;
     const float v = t * (t * t);
     const bool ok = (v > 0.0f) &&
@@ -115,4 +130,12 @@ __device__ __forceinline__ float bt_fixed_round_gamma(BtKey key, float alpha,
     sample = sample * powf(ub, 1.0f / fmaxf(alpha, 1e-12f));
   }
   return sample;
+}
+
+__device__ __forceinline__ float bt_fixed_round_gamma(BtKey key, float alpha,
+                                                      int e, int n) {
+  const BtKey k_norm = bt_fold_in(key, 1), k_unif = bt_fold_in(key, 2);
+  return bt_fixed_round_gamma_keys(bt_fold_in(key, 0), k_norm, k_unif, alpha,
+                                   e, n, bt_gamma_normal0(k_norm, e),
+                                   bt_gamma_uniform0(k_unif, e));
 }

@@ -85,7 +85,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
 The genotype runs of phases 5-9 are made with the port's plain gamma
 samplers (torch fixed_round_gamma, prng._gamma_one_batch) replaced by
 functions that raise, so no plain rate update or prior draw runs on a card
-path; each counts launches from zero. It ends with a
+path; each counts launches from zero, and logs the sha256 of the VCF it
+wrote, so that two trees' runs can be compared bit for bit. After the
+joint phase it logs gibbs_sweep's, noise_step's and joint_step's time on
+every class of the main unit with the chunk's pairs, the main and joint
+paths' launches at the class's width and the bound. It ends with a
 JSON line of per-kernel numbers (launches per path and summed; a global-
 memory variant is an entry of its own, with the wide phase's numbers),
 then the result line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -96,6 +100,7 @@ import argparse
 import contextlib
 import dataclasses
 import faulthandler
+import hashlib
 import json
 import os
 import shutil
@@ -142,6 +147,8 @@ STAR = 2
 # outside the tensor cores (the kernels' integer and float work is scalar)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# 32-bit integer operations/s: 64 INT32 lanes per SM against 128 FP32
+PEAK_INT_OPS_S = PEAK_OPS_S / 2
 
 # the kernels each path must launch: the main unit's genotype_unit and
 # genotype_unit_joint, the coupled unit's genotype_unit (its
@@ -222,6 +229,13 @@ GATHER_SPANS = ("bt.kmc_decode", "bt.lookup_upload", "bt.lane_lookup",
 
 def log(msg):
     print(msg, flush=True)
+
+
+def log_vcf(label, path):
+    """The sha256 of a VCF written on the card, so that two trees' runs can
+    be compared bit for bit."""
+    with open(path, "rb") as f:
+        log(f"{label}: VCF sha256 {hashlib.sha256(f.read()).hexdigest()}")
 
 
 # ---------------------------------------------------------------------------
@@ -521,27 +535,47 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the scalar float32 rate."""
+def bound(nbytes, ops, int_ops=0):
+    """(bound_ms, bound_by): the largest of bytes over the HBM rate,
+    float32 operations over the scalar float32 rate and integer operations
+    over the INT32 rate (the two pipes run side by side)."""
     t_b = nbytes / PEAK_BYTES_S * 1e3
-    t_o = ops / PEAK_OPS_S * 1e3
+    t_o = max(ops / PEAK_OPS_S, int_ops / PEAK_INT_OPS_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 # operations counted per unit of work (scalar 32-bit ops):
-#   threefry2x32 = 20 rounds x (add, rotate, xor) + 5 key injections x 3
+#   threefry2x32 = 20 rounds x (add, rotate, xor) + 5 key injections x 3,
+#   all integer
 THREEFRY_OPS = 75
-#   one Gibbs step per (pair, iteration): per (sample, outcome) the logit
-#   (prior add, LL add), max, exp, two running sums and a compare; per
-#   haplotype the count and a gamma draw (one normal + one uniform: two
-#   threefry hashes, the erfinv polynomial, log, pow) and the normalise
+#   a float32 lgamma (its rational approximation and log)
+LGAMMA_OPS = 40
+#   one Gibbs step per (pair, iteration), float32: per (sample, outcome)
+#   the logit (prior add, LL add), max, exp, two running sums and a
+#   compare; per sample the uniform's conversion and scale; per haplotype
+#   the count, the gkey's conversion, a gamma draw's float work (the
+#   erfinv polynomial, two logs, sqrt, division) and the normalise; per
+#   size t <= H the log-probability (four lgammas, the prior's products)
+#   and its exp, sum and compare
 STEP_OPS_SO = 8
-STEP_OPS_H = 2 * THREEFRY_OPS + 40
+STEP_OPS_S = 4
+STEP_OPS_H = 50
+STEP_OPS_T = 4 * LGAMMA_OPS + 12
+#   and integer: threefry hashes for the step's nine keys (fold_in(chain,
+#   t), k_cat, k_freq, k_size, k_sel, k_gam and the gamma draw's k_boost,
+#   k_norm, k_unif), one uniform per sample, one gkey uniform per
+#   haplotype and a gamma draw's normal and uniform per haplotype (one
+#   rejection round: most accept in the first)
+STEP_KEYS = 9
 
 
 def step_ops(n_pairs, s, o, h):
-    return n_pairs * (STEP_OPS_SO * s * o + STEP_OPS_H * h)
+    """(float32 ops, integer ops) of one Gibbs step of n_pairs pairs:
+    n * (8 S O + 4 S + 50 H + (4 LGAMMA_OPS + 12) (H + 1)) and
+    n * THREEFRY_OPS * (9 + S + 3 H)."""
+    flt = n_pairs * (STEP_OPS_SO * s * o + STEP_OPS_S * s + STEP_OPS_H * h
+                     + STEP_OPS_T * (h + 1))
+    return flt, n_pairs * THREEFRY_OPS * (STEP_KEYS + s + 3 * h)
 
 
 #   one rate update per (chain, sample): four key derivations, then one
@@ -576,6 +610,44 @@ def no_plain_rate_update():
         yield
     finally:
         sampling.fixed_round_gamma, prng._gamma_one_batch = real
+
+
+# the kernels whose time chip_smoke.py logs on every class of the main unit
+CLASS_TIMED = ("gibbs_sweep", "noise_step", "joint_step")
+
+
+@contextlib.contextmanager
+def launches_by_width(counts):
+    """Count the launches of CLASS_TIMED's kernels by their outcome width O
+    (the last axis of their first tensor) into counts[(name, O)], beside
+    kernels.LAUNCHES."""
+    from bayestyper_tpu_torch import kernels
+
+    real = kernels._launch_layout
+
+    def counted(name, *args):
+        if name in CLASS_TIMED:
+            key = (name, int(args[0].shape[-1]))
+            counts[key] = counts.get(key, 0) + 1
+        return real(name, *args)
+
+    kernels._launch_layout = counted
+    try:
+        yield counts
+    finally:
+        kernels._launch_layout = real
+
+
+def log_class_times(book, by_width):
+    """CLASS_TIMED's time on the first chunk of every class, with the
+    chunk's real pairs, the path's launches at the class's width and the
+    bound."""
+    for nm, r in book.times:
+        if nm in CLASS_TIMED:
+            log(f"  class time {nm} at {r['shape']}: {r['ms']:.4f} ms over "
+                f"{r['pairs']} pairs; {by_width.get((nm, r['o']), 0)} "
+                f"launches at O = {r['o']} on the path; bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 class KernelBook:
@@ -660,6 +732,9 @@ def check_class(book, pc, bucket, tables, filters, seed, bulk, scan=None):
     ks = prng.split(prng.prng_key(seed), 2)
     sub_base, fold = gibbs._chain_base(ks[0], ch)
     chain_base, _ = gibbs._chain_base(ks[1], ch)
+    # the kernels' key words, converted once as the engine does
+    chain_base = kernels.key_words(chain_base, dev)
+    fold = kernels.key_words(fold, dev)
     salt = gibbs._SUBSAMPLE_SALT
     rate = cfg.kmer_subsampling_rate
 
@@ -770,9 +845,11 @@ def check_class(book, pc, bucket, tables, filters, seed, bulk, scan=None):
     ms = cuda_ms(lambda: scan(kernels.gibbs_sweep), 5)
     pms = event_ms(lambda: scan(plain["gibbs_sweep"]))
     nbytes = n_r * s * o * 4 * 2 + n_r * h * 4
-    bms, by = bound(nbytes, iters * step_ops(n_r, s, o, h))
+    f_ops, i_ops = step_ops(n_r, s, o, h)
+    bms, by = bound(nbytes, iters * f_ops, iters * i_ops)
     book.timing("gibbs_sweep", bulk, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, library_ms=None, shape=f"{tag} x{iters}")
+                bound_by=by, library_ms=None, shape=f"{tag} x{iters}",
+                pairs=n_r, o=o)
 
     # -- bucket_stats, the main path's packed form, from the scan's tally --
     t_top = o if o <= 64 else 8
@@ -826,9 +903,10 @@ def check_class(book, pc, bucket, tables, filters, seed, bulk, scan=None):
     ms = cuda_ms(lambda: nstep(kernels.noise_step, zeros(), zeros()), 5)
     pms = cuda_ms(lambda: nstep(plain["noise_step"], zeros(), zeros()), 3)
     nbytes = 3 * n_r * s * o * 4 + 2 * n_r * h * 4 + c_r * 4
-    bms, by = bound(nbytes, step_ops(n_r, s, o, h) + 4 * n_r * s * o)
+    f_ops, i_ops = step_ops(n_r, s, o, h)
+    bms, by = bound(nbytes, f_ops + 4 * n_r * s * o, i_ops)
     book.timing("noise_step", bulk, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, library_ms=None, shape=tag)
+                bound_by=by, library_ms=None, shape=tag, pairs=n_r, o=o)
     return lines
 
 
@@ -1057,12 +1135,14 @@ def kernel_phase(unit, samples, ploidy, opts, dev, scan=None,
 
 
 def joint_step_cost(n_r, s, o, h, c_r):
-    """(bytes, operations) of one joint_step launch on n_r real pairs: llg,
-    a and b read once, frequencies read and written, the pooling mask, and
-    per (pair, sample) the tally entry of the drawn outcome read and
-    written and the outcome written; the Gibbs step and the LL build."""
+    """(bytes, float32 operations, integer operations) of one joint_step
+    launch on n_r real pairs: llg, a and b read once, frequencies read and
+    written, the pooling mask, and per (pair, sample) the tally entry of
+    the drawn outcome read and written and the outcome written; the Gibbs
+    step (step_ops) and the LL build (4 S O float ops per pair)."""
     nbytes = 3 * n_r * s * o * 4 + 2 * n_r * h * 4 + c_r * 4 + 3 * n_r * s * 4
-    return nbytes, step_ops(n_r, s, o, h) + 4 * n_r * s * o
+    f_ops, i_ops = step_ops(n_r, s, o, h)
+    return nbytes, f_ops + 4 * n_r * s * o, i_ops
 
 
 def check_joint_class(book, pc, su, cv_real, burn_in, bulk):
@@ -1125,7 +1205,8 @@ def check_joint_class(book, pc, su, cv_real, burn_in, bulk):
     c_r = int(cv_real)
     bms, by = bound(*joint_step_cost(c_r * ch, s, o, h, c_r))
     book.timing("joint_step", bulk, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, library_ms=None, shape=tag)
+                bound_by=by, library_ms=None, shape=tag, pairs=c_r * ch,
+                o=o)
     return (f"joint_step {tag}: statistics and tally exact (differ by {d}); "
             f"drawn outcomes agree on {agree}/{total}, freqs within "
             f"{ferr:.3g} where they agree; {ms:.3f} ms, plain {pms:.3f} ms, "
@@ -1320,6 +1401,7 @@ def joint_run(unit, samples, genome, ploidy, opts, out_path, name, smi,
             dataclasses.replace(opts, noise_genotyping=True), device="cuda")
         torch.cuda.synchronize()
     t_genotype = time.perf_counter() - t0
+    log_vcf(label, out_path)
     launches = dict(kernels.LAUNCHES)
     need = [nm for nm in JOINT_KERNELS if nm != "unpack_bucket"]
     missing = [nm for nm in need if launches[nm] == 0]
@@ -1372,15 +1454,15 @@ def cap_cost(bucket, w0):
 
 
 def nested_cost(setup, iters):
-    """(bytes, operations) of a nested_sweep launch of `iters` iterations
-    over the clusters its groups list (padded rows are not sampled): each
-    level's tables of those rows read once and their carried state read and
-    written once; per (cluster, chain, iteration) the Gibbs step, the
-    shared k-mer terms (four operations per valid (k-mer, sample, outcome))
-    and the MAC fold."""
+    """(bytes, float32 ops, integer ops) of a nested_sweep launch of
+    `iters` iterations over the clusters its groups list (padded rows are
+    not sampled): each level's tables of those rows read once and their
+    carried state read and written once; per (cluster, chain, iteration)
+    the Gibbs step (step_ops), the shared k-mer terms (four operations per
+    valid (k-mer, sample, outcome)) and the MAC fold."""
     s = setup.pool.shape[2]
     nbytes = setup.pool.numel() * 8
-    ops = 0
+    ops = i_ops = 0
     members = setup.groups[1].to(torch.int64)
     for l, lv in enumerate(setup.levels):
         rows = members[members[:, 0] == l, 1].to(lv.ll.device)
@@ -1388,7 +1470,7 @@ def nested_cost(setup, iters):
         c_r = rows.numel()
         h = lv.hap_valid.shape[1]
         tensors = [lv.ll, lv.freqs, lv.ocur, lv.tally, lv.retain, lv.ploidy]
-        per = c_r * (STEP_OPS_SO * s * o + STEP_OPS_H * h)
+        per, per_i = step_ops(c_r, s, o, h)
         if lv.sh is not None:
             tensors += [lv.sh[f] for f in ("slot", "valid", "counts", "inter",
                                            "dip", "w", "tcut")]
@@ -1400,7 +1482,8 @@ def nested_cost(setup, iters):
                 per += s * v * (4 * q_r + c_r * (10 + 4 * a))
         nbytes += sum(t.numel() * t.element_size() for t in tensors) * c_r / c
         ops += ch * iters * per
-    return nbytes, ops
+        i_ops += ch * iters * per_i
+    return nbytes, ops, i_ops
 
 
 def check_nested(book, setup, ch):
@@ -1624,6 +1707,7 @@ def coupled_run(tmp, args, opts, ploidy, book, dev, name, smi):
                                        out_path, opts, device="cuda")
         torch.cuda.synchronize()
     t_genotype = time.perf_counter() - t0
+    log_vcf("coupled", out_path)
     launches = dict(kernels.LAUNCHES)
     missing = [nm for nm in COUPLED_KERNELS if launches[nm] == 0]
     if missing:
@@ -2040,6 +2124,7 @@ def lookup_phase(book, tmp, unit, samples, genome, ploidy, opts, dev,
                                        out_path, opts, device="cuda")
         torch.cuda.synchronize()
     t_genotype = time.perf_counter() - t0
+    log_vcf("main_device_lookup", out_path)
     launches_e = dict(kernels.LAUNCHES)
     missing = [nm for nm in MAIN_KERNELS + ("lane_lookup",)
                if launches_e[nm] == 0]
@@ -2569,6 +2654,7 @@ def wide_phase(tmp, args, opts, ploidy, dev, name, smi):
                                        out_path, opts, device="cuda")
         torch.cuda.synchronize()
     t_genotype = time.perf_counter() - t0
+    log_vcf("wide", out_path)
     launches = dict(kernels.LAUNCHES)
     missing = [nm for nm in WIDE_KERNELS if launches[nm] == 0]
     if missing:
@@ -2636,6 +2722,7 @@ def mesh_phase(plan, unit, samples, genome, ploidy, opts, dev, paths,
                 device="cuda")
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        log_vcf(f"mesh {run.__name__} over {n}", out)
         launches = dict(kernels.LAUNCHES)
         for nm, c in launches.items():
             total[nm] += c
@@ -2787,11 +2874,13 @@ def main():
         kernels.reset_launch_counts()
         out_path = os.path.join(tmp, "genotypes.vcf")
         t0 = time.perf_counter()
-        with no_plain_rate_update():
+        by_width = {}
+        with no_plain_rate_update(), launches_by_width(by_width):
             summary = engine.genotype_unit(unit, samples, genome, ploidy,
                                            out_path, opts, device="cuda")
             torch.cuda.synchronize()
         t_genotype = time.perf_counter() - t0
+        log_vcf("main", out_path)
         launches = dict(kernels.LAUNCHES)
         missing = [nm for nm in MAIN_KERNELS if launches[nm] == 0]
         if missing:
@@ -2835,9 +2924,12 @@ def main():
             f"({time.perf_counter() - t0:.1f} s); drawn outcomes agree on "
             f"{book.josel[0]}/{book.josel[1]} (joint_step)")
         joint_path = os.path.join(tmp, "genotypes_joint.vcf")
-        launches_j = joint_run(unit, samples, genome, ploidy, opts,
-                               joint_path, name, smi, t_cluster, variants,
-                               truth, "joint")
+        with launches_by_width(by_width):
+            launches_j = joint_run(unit, samples, genome, ploidy, opts,
+                                   joint_path, name, smi, t_cluster,
+                                   variants, truth, "joint")
+        log("main unit, every class (main and joint paths):")
+        log_class_times(book, by_width)
         if launches_j["unpack_bucket"] == 0:
             raise RuntimeError("the joint path launched no unpack_bucket")
 

@@ -1,0 +1,323 @@
+"""Time and fingerprint the Gibbs kernels of one tree of this repository on
+one CUDA card, to compare two trees (a parent commit and a change) on the
+same card.
+
+    python3 kernel_ab.py --tree PATH --out RESULT.json [--seed 0] [--scale 2]
+
+PATH is a checkout of the repository (the current one by default); the
+script imports that tree's bayestyper_tpu_torch and chip_smoke, so its
+kernels build into PATH/.torch_ext_build. On chip_smoke.py's simulated
+units it records, per size class of the main unit and of the wide unit
+(30 samples) on the class's first chunk:
+
+  * gibbs_sweep: the 350-iteration scan (burn-in 100) from the path's
+    inputs, and the same scan in two windows (0-60, 60-350), with the
+    sha256 of its frequencies, tally and last drawn outcomes;
+  * noise_step at t = 7 and joint_step at t = 200 (burn-in 100) from the
+    class's noise terms: the sha256 of frequencies, drawn outcomes, int32
+    statistics (and tally);
+
+each with its CUDA-event median time (3 runs after a warm-up; noise_step
+and joint_step per launch of 10 back to back); the coupled unit's
+nested_sweep over all 350 iterations (sha256 of every level's tally,
+frequencies and MAC accumulator, and its time); and the sha256 of the VCFs
+that genotype_unit and genotype_unit_joint write for the main, coupled and
+wide units, with their phase seconds. Run parent, change, change, parent
+one after another on one card (each in its own process: the two trees'
+extensions share a name) and compare: equal fingerprints mean the same
+bits, and the two runs of one tree give the run-to-run spread of the
+times.
+"""
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+
+# launches per timing of the per-iteration kernels
+REPS = 10
+
+
+def sha(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def file_sha(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def class_rows(cs, unit, samples, ploidy, opts, dev, label):
+    """The Gibbs kernels on the first chunk of every size class of unit."""
+    import numpy as np
+    import torch
+
+    from bayestyper_tpu_torch import engine, kernels
+    from bayestyper_tpu_torch.model import gibbs
+    from bayestyper_tpu_torch.model.buckets import stack_buckets
+    from bayestyper_tpu_torch.model.count_model import fit_genomic_nb
+    from bayestyper_tpu_torch.ops import prng
+    from bayestyper_tpu_torch.ops.distributions import (
+        np_build_count_log_prob_tables, tables_from_numpy)
+
+    table, counts = engine.gather_sample_counts(unit, samples,
+                                                opts.num_host_threads)
+    nb = fit_genomic_nb(engine.parameter_kmer_stats(unit, samples, table,
+                                                    counts))
+    ucounts = engine._UnitCounts(unit, table, counts)
+    singles = list(unit.compiled)
+    plan = engine._plan_unit(singles, engine._class_map(singles), opts,
+                             samples, None)
+    tables = tables_from_numpy(np_build_count_log_prob_tables(
+        nb.p, nb.size, np.full(len(samples), 1e-3), 255), dev)
+    rows = []
+    for key_cls in sorted(plan):
+        pc = plan[key_cls]
+        cfg = pc.cfg
+        ch = cfg.num_chains
+        bucket = engine._bucket_cached(
+            None, pc.chunks[0], (pc.c_pad, pc.k, pc.h, pc.v), samples,
+            ploidy, ucounts, opts.random_seed, dev)
+        c = bucket.mult.shape[0]
+        s = bucket.counts.shape[2]
+        osp = gibbs.outcome_tensors(pc.h, dev)
+        o = osp.oa.shape[0]
+        n = c * ch
+        ks = prng.split(prng.prng_key(opts.random_seed), 2)
+        sub_base, fold = gibbs._chain_base(ks[0], ch)
+        chain_base, _ = gibbs._chain_base(ks[1], ch)
+        # the kernels' key words, converted once as the engine does
+        chain_base = kernels.key_words(chain_base, dev)
+        fold = kernels.key_words(fold, dev)
+        w = kernels.subsample_masks(sub_base, fold, bucket.cluster_id,
+                                    bucket.kmer_valid,
+                                    cfg.kmer_subsampling_rate,
+                                    gibbs._SUBSAMPLE_SALT)
+        mmax = min(cfg.max_total_mult, tables.shape[1] - 1)
+        ll_args = (bucket.mult, bucket.inter_mult, bucket.counts, w, tables,
+                   mmax, osp.oa32, osp.ob32)
+        ll, _ = kernels.ll_noise_terms(*ll_args, include_noise_row=True)
+        llg, (a_t, b_t, c0_t) = kernels.ll_noise_terms(
+            *ll_args, include_noise_row=False, noise_terms=True)
+        c0_t[..., -1] = 0.0
+        ll_n = ll.reshape(n, s, o)
+        llg_n = (llg - c0_t).reshape(n, s, o)
+        a_n, b_n = a_t.reshape(n, s, o), b_t.reshape(n, s, o)
+        del ll, llg, a_t, b_t, c0_t
+        fields = gibbs._cluster_fields(stack_buckets([bucket]))
+        freqs0 = gibbs._freqs0(stack_buckets([bucket]), ch).reshape(n, pc.h)
+        cv = bucket.cluster_valid.to(torch.float32)
+        rates = torch.full((ch, s), 2e-3, device=dev)
+        log_r = torch.log(rates)
+        iters, burn_in = cfg.burn_in + cfg.num_samples, cfg.burn_in
+        tag = f"{label} H{pc.h}/K{pc.k}/C{c}"
+        zeros = lambda: torch.zeros((ch, s), dtype=torch.int32, device=dev)  # noqa: E731
+
+        def sweep(windows):
+            f = freqs0.clone()
+            tally = torch.zeros((n, s, o), dtype=torch.int32, device=dev)
+            for t0, t1 in windows:
+                _, _, osel = kernels.gibbs_sweep(
+                    ll_n, *fields, chain_base, fold, f, t0, t1, burn_in, osp,
+                    tally)
+            return f, tally, osel
+
+        def nstep():
+            cs, no = zeros(), zeros()
+            f, osel = kernels.noise_step(llg_n, a_n, b_n, cv, log_r, rates,
+                                         *fields, chain_base, fold,
+                                         freqs0.clone(), 7, osp, cs, no)
+            return f, osel, cs, no
+
+        def jstep(tally):
+            cs, no = zeros(), zeros()
+            f, osel = kernels.joint_step(llg_n, a_n, b_n, cv, log_r, rates,
+                                         *fields, chain_base, fold,
+                                         freqs0.clone(), 200, osp, cs, no,
+                                         tally, burn_in)
+            return f, osel, cs, no, tally
+
+        new_tally = lambda: torch.zeros((n, s, o), dtype=torch.int32,  # noqa: E731
+                                        device=dev)
+        row = {
+            "class": tag, "pairs": n, "s": s, "o": o, "h": pc.h,
+            "iters": iters,
+            "sweep_sha": sha(*sweep([(0, iters)])),
+            "sweep_windows_sha": sha(*sweep([(0, 60), (60, iters)])),
+            "noise_sha": sha(*nstep()),
+            "joint_sha": sha(*jstep(new_tally())),
+        }
+        kernels.reset_launch_counts()
+        sweep([(0, iters)])
+        row["layouts"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        row["sweep_ms"] = cs.cuda_ms(lambda: sweep([(0, iters)]), 3)
+        # the per-iteration kernels: REPS launches back to back on one state
+        f, cs_, no, tally = freqs0.clone(), zeros(), zeros(), new_tally()
+
+        def reps(name, *extra):
+            fn = getattr(kernels, name)
+            for _ in range(REPS):
+                fn(llg_n, a_n, b_n, cv, log_r, rates, *fields, chain_base,
+                   fold, f, 200, osp, cs_, no, *extra)
+
+        row["noise_ms"] = cs.cuda_ms(lambda: reps("noise_step"), 3) / REPS
+        row["joint_ms"] = cs.cuda_ms(
+            lambda: reps("joint_step", tally, burn_in), 3) / REPS
+        cs.log(f"  {tag} ({n} pairs): sweep {row['sweep_ms']:.3f} ms, "
+               f"noise {row['noise_ms']:.4f} ms, joint {row['joint_ms']:.4f} "
+               f"ms; sweep {row['sweep_sha'][:12]} windows "
+               f"{row['sweep_windows_sha'][:12]} noise "
+               f"{row['noise_sha'][:12]} joint {row['joint_sha'][:12]}")
+        rows.append(row)
+        del bucket, ll_n, llg_n, a_n, b_n
+        torch.cuda.empty_cache()
+    return rows
+
+
+def nested_row(cs, unit, samples, ploidy, opts, dev):
+    """nested_sweep over all iterations of the coupled unit's levels."""
+    import numpy as np
+
+    from bayestyper_tpu_torch import engine
+    from bayestyper_tpu_torch.model import gibbs
+    from bayestyper_tpu_torch.model.count_model import fit_genomic_nb
+    from bayestyper_tpu_torch.ops import prng
+    from bayestyper_tpu_torch.ops.distributions import (
+        np_build_count_log_prob_tables, tables_from_numpy)
+
+    table, counts = engine.gather_sample_counts(unit, samples,
+                                                opts.num_host_threads)
+    nb = fit_genomic_nb(engine.parameter_kmer_stats(unit, samples, table,
+                                                    counts))
+    ucounts = engine._UnitCounts(unit, table, counts)
+    tables = tables_from_numpy(np_build_count_log_prob_tables(
+        nb.p, nb.size, np.full(len(samples), 1e-3), 255), dev)
+    nested = [fc for fc in unit.compiled if engine._is_coupled(fc)]
+    ni = engine._nested_inputs(nested, samples, ploidy, ucounts, opts, dev)
+    args, kwargs = ni.genotype_args(prng.prng_key(opts.random_seed), tables)
+    setup = gibbs.nested_setup(*args, **kwargs)
+    run = setup.clone()
+    run.run()
+    parts = []
+    for lv in run.levels:
+        parts += [lv.tally, lv.freqs]
+        if lv.mac is not None:
+            parts.append(lv.mac["acc"])
+    row = {"levels": len(setup.levels), "iters": setup.num_iters,
+           "nested_sha": sha(*parts),
+           "nested_ms": cs.cuda_ms(lambda: setup.clone().run(), 3)}
+    cs.log(f"  nested_sweep ({row['levels']} levels x {row['iters']} it.): "
+           f"{row['nested_ms']:.3f} ms, {row['nested_sha'][:12]}")
+    return row
+
+
+def vcf_rows(cs, unit, samples, genome, ploidy, opts, tmp, label):
+    """genotype_unit and genotype_unit_joint on the card: VCF sha256s."""
+    import torch
+
+    from bayestyper_tpu_torch import engine
+
+    out = {}
+    for mode in ("seq", "joint"):
+        path = os.path.join(tmp, f"{label}_{mode}.vcf")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "seq":
+            summary = engine.genotype_unit(unit, samples, genome, ploidy,
+                                           path, opts, device="cuda")
+        else:
+            summary = engine.genotype_unit_joint(
+                unit, samples, genome, ploidy, path,
+                dataclasses.replace(opts, noise_genotyping=True),
+                device="cuda")
+        torch.cuda.synchronize()
+        out[f"{label}_{mode}"] = {
+            "sha256": file_sha(path), "seconds": time.perf_counter() - t0,
+            "timings": summary["timings"]}
+        cs.log(f"  {label} {mode}: {out[f'{label}_{mode}']['sha256']} "
+               f"({out[f'{label}_{mode}']['seconds']:.2f} s)")
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
+        __file__)))
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scale", type=float, default=2.0)
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from bayestyper_tpu_torch import engine, kernels
+    from bayestyper_tpu_torch.io.samples import ChromosomePloidy
+
+    assert os.path.dirname(os.path.abspath(kernels.__file__)).startswith(tree)
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    t0 = time.perf_counter()
+    kernels.build()
+    cs.log(f"kernel_ab {tree}: {smi}; build {time.perf_counter() - t0:.1f} s")
+    ploidy = ChromosomePloidy.human_default()
+    opts = engine.GenotypeOptions(
+        num_chains=20, burn_in=100, num_samples=250, random_seed=1,
+        max_bucket_clusters=4096, num_host_threads=os.cpu_count() or 1)
+    result = {"tree": tree, "device": smi, "classes": [], "vcf": {}}
+    tmp = tempfile.mkdtemp(prefix="bt_kernel_ab_")
+
+    def cluster(genome, samples, vcf_path):
+        return engine.run_cluster_phase(
+            genome, samples, vcf_path, ploidy, kmer_size=cs.K,
+            max_parameter_kmers=1_000_000, num_threads=os.cpu_count() or 1)
+
+    os.makedirs(os.path.join(tmp, "main"))
+    genome, vcf_path, _, _, samples = cs.simulate(
+        os.path.join(tmp, "main"), args.seed, args.scale)
+    unit = cluster(genome, samples, vcf_path)
+    result["classes"] += class_rows(cs, unit, samples, ploidy, opts, dev,
+                                    "main")
+    result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy, opts,
+                                  tmp, "main"))
+
+    os.makedirs(os.path.join(tmp, "coupled"))
+    genome, vcf_path, _, _, samples, _ = cs.simulate_coupled(
+        os.path.join(tmp, "coupled"), args.seed, args.scale)
+    unit = cluster(genome, samples, vcf_path)
+    result["nested"] = nested_row(cs, unit, samples, ploidy, opts, dev)
+    result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy, opts,
+                                  tmp, "coupled"))
+
+    os.makedirs(os.path.join(tmp, "wide"))
+    genome, vcf_path, _, _, samples, _ = cs.simulate_wide(
+        os.path.join(tmp, "wide"), args.seed, cs.WIDE_SCALE)
+    unit = cluster(genome, samples, vcf_path)
+    result["classes"] += class_rows(cs, unit, samples, ploidy, opts, dev,
+                                    "wide")
+    result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy, opts,
+                                  tmp, "wide"))
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    cs.log(f"kernel_ab: wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

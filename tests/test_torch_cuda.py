@@ -603,3 +603,95 @@ def test_genotype_unit_mesh_on_card(cuda, small_unit):
             paths.append(out)
         one, two = (open(p, "rb").read() for p in paths)
         assert one == two
+
+
+# -- the block-of-pairs step: every packing, sample count and layout ------
+
+def _step_args(name, p, t, tally, burn_in, log_r, rates):
+    if name == "gibbs_sweep":
+        return (p["llg"], *p["fields"], p["base"], p["fold"],
+                p["freqs"].clone(), t, t + 1, burn_in, p["osp"], tally)
+    cs = torch.zeros(rates.shape, dtype=torch.int32, device=rates.device)
+    args = (p["llg"], p["a"], p["b"], p["cv"], log_r, rates, *p["fields"],
+            p["base"], p["fold"], p["freqs"].clone(), t, p["osp"], cs,
+            torch.zeros_like(cs))
+    return args + ((tally, burn_in) if name == "joint_step" else ())
+
+
+@pytest.mark.parametrize("s", [1, 13, 30])
+@pytest.mark.parametrize("h", [2, 4, 8, 16, 64])
+@pytest.mark.parametrize("name", ["gibbs_sweep", "noise_step", "joint_step"])
+def test_gibbs_step_classes_match_plain(cuda, name, h, s):
+    """Each Gibbs kernel on a class of every packing and layout (H2, H4:
+    several pairs per block, logits in registers; H8: several pairs, the
+    shared exp cache; H16: a block per pair, every exp cached; H64: the LL
+    in device memory, every exp cached up to 13 samples, the chosen
+    block's at 30) and S = 1, 13, 30, over 37 clusters x 4 chains (a
+    ragged last block), against its plain version at chip_smoke.py's bars:
+    drawn outcomes agree on >= 99.9%, frequencies within 1e-5 where a
+    pair's draws agree, tallies and int32 statistics exact for the
+    kernel's own draws."""
+    p = _noise_pairs(np.random.default_rng(100 * h + s), cuda, h, c=37, ch=4,
+                     s=s)
+    ch, o = p["ch"], p["o"]
+    rates = torch.full((ch, s), 2e-3, device=cuda)
+    log_r = torch.log(rates)
+    cvp = p["cv"].repeat_interleave(ch)[:, None]
+    agree = total = 0
+    for t in (3, 40, 41):
+        outs = []
+        for fn in (getattr(kernels, name), kernels.PLAIN[name]):
+            tally = torch.zeros(p["llg"].shape, dtype=torch.int32,
+                                device=cuda)
+            args = _step_args(name, p, t, tally, 40, log_r, rates)
+            res = fn(*args)
+            torch.cuda.synchronize()
+            stats = args[-4:-2] if name == "joint_step" else args[-2:]
+            outs.append((res[0], res[-1].to(torch.int64), stats, tally))
+        (f_k, o_k, (cs_k, no_k), t_k), (f_p, o_p, _, _) = outs
+        same = o_k == o_p
+        agree += int(same.sum())
+        total += same.numel()
+        pair_same = same.all(dim=1)
+        torch.testing.assert_close(f_k[pair_same], f_p[pair_same], rtol=0,
+                                   atol=chip_smoke.FREQ_ATOL)
+        if name != "noise_step":
+            onehot = torch.zeros_like(t_k).scatter_(2, o_k[..., None], 1)
+            assert torch.equal(t_k, onehot if t >= 40 else 0 * onehot)
+        if name != "gibbs_sweep":
+            for x, want in ((p["a"], cs_k), (p["b"], no_k)):
+                sel = (torch.gather(x, 2, o_k[..., None])[..., 0] * cvp).to(
+                    torch.int32).reshape(-1, ch, s).sum(0, dtype=torch.int32)
+                assert torch.equal(sel, want)
+    assert agree >= chip_smoke.OSEL_AGREE_MIN * total, (agree, total)
+
+
+@pytest.mark.parametrize("h, s", [(2, 13), (8, 30), (16, 1), (64, 13),
+                                  (64, 30)])
+def test_gibbs_sweep_windows_equal_whole_scan(cuda, h, s):
+    """A scan split into windows, with the burn-in inside a window, gives
+    the whole scan's bits (the tally kept in shared memory per launch and
+    added into the device tally at its end; at H64 x 30 samples, where it
+    does not fit, written to device memory directly), and the whole scan's
+    tally agrees with the plain version's on >= 90% of pairs."""
+    p = _noise_pairs(np.random.default_rng(7 * h + s), cuda, h, c=11, ch=4,
+                     s=s)
+    iters, burn_in = 60, 25
+
+    def scan(fn, windows):
+        f = p["freqs"].clone()
+        tally = torch.zeros(p["llg"].shape, dtype=torch.int32, device=cuda)
+        for t0, t1 in windows:
+            f, _, osel = fn(p["llg"], *p["fields"], p["base"], p["fold"], f,
+                            t0, t1, burn_in, p["osp"], tally)
+        torch.cuda.synchronize()
+        return f, tally, osel
+
+    whole = scan(kernels.gibbs_sweep, [(0, iters)])
+    split = scan(kernels.gibbs_sweep, [(0, 10), (10, 40), (40, iters)])
+    for x, y in zip(whole, split):
+        assert torch.equal(x, y)
+    assert bool((whole[1].sum(-1) == iters - burn_in).all())
+    plain = scan(kernels.PLAIN["gibbs_sweep"], [(0, iters)])
+    same = (plain[1] == whole[1]).all(dim=-1).all(dim=-1)
+    assert same.float().mean() >= 0.9, same
