@@ -9,7 +9,7 @@ stream or raises — a failed build or launch never falls back. Every launch
 adds one to LAUNCHES[name], so a run can show which kernels it went
 through.
 
-Seven kernels keep large arrays in shared memory. Their launchers read the
+Six kernels keep large arrays in shared memory. Their launchers read the
 card's opt-in shared memory per block and, for shapes past it, launch a
 global-memory variant of the same kernel (the same arithmetic in the same
 order): those launches count under LAUNCHES[name + "_global"] (GLOBAL).
@@ -30,6 +30,7 @@ import dataclasses
 import os
 import threading
 
+import numpy as np
 import torch
 
 from . import reference
@@ -58,8 +59,8 @@ REPLACES = {
 
 # the kernels with a global-memory variant, and its launch-count name
 GLOBAL = {name: f"{name}_global" for name in (
-    "ll_noise_terms", "gibbs_sweep", "noise_step", "joint_step", "kmer_cap",
-    "bucket_stats", "nested_sweep")}
+    "gibbs_sweep", "noise_step", "joint_step", "kmer_cap", "bucket_stats",
+    "nested_sweep")}
 
 LAUNCHES = dict.fromkeys(KERNELS + tuple(GLOBAL.values()), 0)
 
@@ -157,18 +158,32 @@ def subsample_masks(base_keys, fold, cluster_id, kmer_valid, rate, salt):
                    kmer_valid.contiguous(), float(rate), int(salt))
 
 
+def pack_bits(mask):
+    """Bool masks [..., K] as int32 words [..., ceil(K / 32)]: bit j of word
+    i is element 32 i + j (model.buckets.unpack_member_bits inverts it)."""
+    k = mask.shape[-1]
+    if k % 32:
+        mask = torch.cat([mask, mask.new_zeros(mask.shape[:-1] + (-k % 32,))],
+                         dim=-1)
+    octets = mask.contiguous().view(torch.uint8).reshape(
+        mask.shape[:-1] + (-1, 8))
+    shifts = torch.arange(8, dtype=torch.uint8, device=mask.device)
+    return (octets << shifts).sum(-1, dtype=torch.uint8).view(torch.int32)
+
+
 def ll_noise_terms(mult, inter, counts, w, tables, mmax, oa, ob,
                    include_noise_row=True, noise_terms=False):
     """LL [C, ch, S, O] f32 (null column zeroed) and, with noise_terms,
-    (A, B, C0) [C, ch, S, O]; else None."""
+    (A, B, C0) [C, ch, S, O]; else None. w [C, ch, K] bool: the subsample
+    masks, which the kernel reads packed (pack_bits)."""
     if not mult.is_cuda:
         return reference.ll_noise_terms(mult, inter, counts, w, tables, mmax,
                                         oa, ob, include_noise_row,
                                         noise_terms)
-    out = _launch_layout("ll_noise_terms",
-                  *(x.contiguous() for x in (mult, inter, counts, w)),
-                  tables.to(torch.float32).contiguous(), int(mmax),
-                  oa.to(torch.int32).contiguous(),
+    out = _launch("ll_noise_terms",
+                  *(x.contiguous() for x in (mult, inter, counts)),
+                  pack_bits(w), tables.to(torch.float32).contiguous(),
+                  int(mmax), oa.to(torch.int32).contiguous(),
                   ob.to(torch.int32).contiguous(), bool(include_noise_row),
                   bool(noise_terms))
     return out[0], (tuple(out[1:]) if noise_terms else None)
@@ -435,20 +450,103 @@ _SH_FIELDS = ("slot", "valid", "counts", "inter", "dip", "w", "tcut")
 _MAC_FIELDS = ("mem", "n_hv", "ha", "acc")
 
 
+def order_groups(groups):
+    """groups = (offsets [G+1], members [N, 2]) with the groups in
+    descending order of size, ties in their given order: the deepest
+    serial chains take the first blocks of the coupled scan."""
+    off = groups[0].cpu().numpy().astype(np.int64)
+    members = groups[1].cpu().numpy().reshape(-1, 2)
+    sizes = off[1:] - off[:-1]
+    order = np.argsort(-sizes, kind="stable")
+    rows = np.repeat(off[:-1][order], sizes[order]) + (
+        np.arange(sizes.sum()) - np.repeat(np.cumsum(sizes[order]) -
+                                           sizes[order], sizes[order]))
+    new_off = np.concatenate([[0], np.cumsum(sizes[order])])
+    return (torch.from_numpy(new_off.astype(np.int32)),
+            torch.from_numpy(members[rows].astype(np.int32)))
+
+
+def nested_tables(levels, groups):
+    """The coupled scan's member tables (CPU int32), for groups in launch
+    order: members [N, 4] (level, row, the index of its containment parent
+    within its group or -1, its valid shared rows); qrows [NQ, 2] (q, the
+    slot within its group's dense pool range, numbered in order of first
+    use), member after member; the groups' dense ranges as offsets pofs
+    [G+1] into gslot [P], the global pool slot of each. Raises where a
+    parent is not an earlier member of its child's group or a pool slot is
+    shared by two groups."""
+    off = groups[0].cpu().numpy().astype(np.int64)
+    mem = groups[1].cpu().numpy().reshape(-1, 2).astype(np.int64)
+    n = mem.shape[0]
+    gid = np.repeat(np.arange(off.size - 1), off[1:] - off[:-1])
+    at = {l: np.flatnonzero(mem[:, 0] == l) for l in np.unique(mem[:, 0])}
+    index = [np.full(lv.ll.shape[0], -1, np.int64) for lv in levels]
+    for l, m in at.items():
+        index[l][mem[m, 1]] = m
+    parent = np.full(n, -1, np.int64)
+    linked = np.zeros(n, bool)
+    pair_m, pair_q, pair_slot = [], [], []
+    for l, m in at.items():
+        lv, r = levels[l], mem[m, 1]
+        plv = lv.parent_level.cpu().numpy()[r]
+        prw = lv.parent_row.cpu().numpy()[r]
+        linked[m] = plv >= 0
+        for p in np.unique(plv[plv >= 0]):
+            sel = plv == p
+            parent[m[sel]] = index[p][prw[sel]]
+        if lv.sh is not None:
+            valid = lv.sh["valid"].cpu().numpy()[r]
+            mi, q = np.nonzero(valid)
+            pair_m.append(m[mi])
+            pair_q.append(q)
+            pair_slot.append(lv.sh["slot"].cpu().numpy()[r][mi, q])
+    bad = linked & ((parent < 0) | (gid[np.maximum(parent, 0)] != gid)
+                    | (parent >= np.arange(n)))
+    if bad.any():
+        raise ValueError(f"member {mem[np.argmax(bad)].tolist()}: its "
+                         f"containment parent is not an earlier member of "
+                         f"its group")
+    local = np.where(linked, parent - off[gid], -1)
+    cat = lambda x: np.concatenate(x) if x else np.zeros(0, np.int64)  # noqa: E731
+    pm, pq, ps = cat(pair_m), cat(pair_q), cat(pair_slot)
+    order = np.lexsort((pq, pm))                   # member after member
+    pm, pq, ps = pm[order], pq[order], ps[order]
+    pg = gid[pm]
+    # dense slots: each group's slots numbered by first use
+    _, first, inverse = np.unique(np.stack([pg, ps], 1), axis=0,
+                                  return_index=True, return_inverse=True)
+    uniq = np.argsort(first, kind="stable")        # (group, slot) pairs by use
+    ug, us = pg[first[uniq]], ps[first[uniq]]
+    by_group = np.argsort(ug, kind="stable")
+    rank = np.empty(uniq.size, np.int64)
+    counts = np.bincount(ug, minlength=off.size - 1)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    rank[uniq[by_group]] = np.arange(uniq.size) - starts[ug[by_group]]
+    if np.unique(us).size != us.size:
+        raise ValueError("a pool slot is shared by two groups")
+    rows = np.stack([mem[:, 0], mem[:, 1], local,
+                     np.bincount(pm, minlength=n)], 1)
+    qrows = np.stack([pq, rank[inverse.reshape(-1)]], 1)
+    as_i32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32))  # noqa: E731
+    return (as_i32(rows), as_i32(qrows), as_i32(starts),
+            as_i32(us[by_group]))
+
+
 def nested_sweep(levels, pool, groups, t0, t1, burn_in):
     """Iterations t0..t1-1 of the coupled scan (gibbs.genotype_nested).
 
     levels: NestedLevel per rank level; pool [P, ch, S] int32, the shared
     k-mers' summed contributions; groups = (offsets [G+1], members [N, 2]
     (level, row)) int32: the coupled groups, each in level order, no two
-    members at one level. On the card one team per (group, chain) runs all
-    iterations over its group's levels; groups never interact, so this
-    equals the level-major scan of the plain version. Rows in no group
-    are not sampled."""
+    members at one level. On the card one block per (group, chain), deepest
+    groups first (order_groups), runs all iterations over its group's
+    members with the group's state in shared memory where it fits
+    (nested_tables lays it out); groups never interact, so this equals the
+    level-major scan of the plain version. Rows in no group are not
+    sampled."""
     if not pool.is_cuda:
         return reference.nested_sweep(levels, pool, groups, t0, t1, burn_in)
-    dev = pool.device
-    empty = torch.empty(0, device=dev)
+    empty = torch.empty(0, device=pool.device)
     flat, ints = [], []
     for lv in levels:
         flat += [lv.ll, lv.ploidy, lv.parent_level, lv.parent_row, lv.retain,
@@ -458,10 +556,10 @@ def nested_sweep(levels, pool, groups, t0, t1, burn_in):
         flat += [lv.mac[f] if lv.mac else empty for f in _MAC_FIELDS]
         key = lv.key.tolist()
         ints += [int(lv.sh["mmax"]) if lv.sh else 0, key[0], key[1]]
-    offsets, members = groups
-    _launch_layout("nested_sweep", flat, ints, pool,
-                   offsets.to(dev).contiguous(), members.to(dev).contiguous(),
-                   int(t0), int(t1), int(burn_in))
+    ordered = order_groups(groups)
+    members, qrows, pofs, gslot = nested_tables(levels, ordered)
+    _launch_layout("nested_sweep", flat, ints, pool, members, ordered[0],
+                   qrows, pofs, gslot, int(t0), int(t1), int(burn_in))
 
 
 def lane_lookup(keys, payload, valid, queries):

@@ -8,6 +8,7 @@
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
 
+#include <cstring>
 #include <tuple>
 #include <vector>
 
@@ -115,48 +116,48 @@ at::Tensor subsample_masks(const at::Tensor& base_keys, const at::Tensor& fold,
   return out;
 }
 
-std::tuple<std::vector<at::Tensor>, int64_t> ll_noise_terms(
+std::vector<at::Tensor> ll_noise_terms(
     const at::Tensor& mult, const at::Tensor& inter, const at::Tensor& counts,
-    const at::Tensor& w, const at::Tensor& tables, int64_t mmax,
+    const at::Tensor& wbits, const at::Tensor& tables, int64_t mmax,
     const at::Tensor& oa, const at::Tensor& ob, bool include_noise_row,
     bool noise_terms) {
   const auto dev = mult.device();
   TORCH_CHECK(dev.is_cuda() && mult.dim() == 3 && counts.dim() == 3 &&
-                  w.dim() == 3 && tables.dim() == 3,
-              "mult [C, K, H], counts [C, K, S], w [C, ch, K], tables "
-              "[S, M, 256]: CUDA tensors");
+                  wbits.dim() == 3 && tables.dim() == 3,
+              "mult [C, K, H], counts [C, K, S], wbits [C, ch, K / 32], "
+              "tables [S, M, 256]: CUDA tensors");
   const int64_t c = mult.size(0), k = mult.size(1), h = mult.size(2);
-  const int64_t s = counts.size(2), ch = w.size(1), o = ob.size(0);
+  const int64_t s = counts.size(2), ch = wbits.size(1), o = ob.size(0);
   const int64_t m_rows = tables.size(1);
   TORCH_CHECK(0 <= mmax && mmax < m_rows, "mmax ", mmax, " outside the ",
               "table's ", m_rows, " rows");
   expect(mult, "mult", at::kByte, {c, k, h}, dev);
   expect(inter, "inter", at::kByte, {c, k, s}, dev);
   expect(counts, "counts", at::kByte, {c, k, s}, dev);
-  expect(w, "w", at::kBool, {c, ch, k}, dev);
+  expect(wbits, "wbits", at::kInt, {c, ch, (k + 31) / 32}, dev);
   expect(tables, "tables", at::kFloat, {s, m_rows, 256}, dev);
   expect(oa, "oa", at::kInt, {h * (h + 1) / 2 + h + 1}, dev);
   expect(ob, "ob", at::kInt, {o}, dev);
   const c10::cuda::CUDAGuard guard(dev);
-  const int layout = bt_ll_noise_terms_layout((int)k, (int)h, (int)ch, (int)o,
-                                              (int)mmax);
-  TORCH_CHECK(layout >= 0, "ll_noise_terms: no tile of 32 k-mers fits H = ",
-              h, ", chains = ", ch, ", mmax = ", mmax, " in ",
-              bt_smem_optin(), " bytes of shared memory");
+  TORCH_CHECK(bt_ll_noise_terms_layout(c, (int)k, (int)h, (int)s, (int)o,
+                                       (int)ch, noise_terms ? 1 : 0) == 0,
+              "ll_noise_terms: no tile of 32 k-mers fits H = ", h,
+              ", S = ", s, " in ", bt_smem_optin(),
+              " bytes of shared memory");
   std::vector<at::Tensor> out;
   for (int i = 0; i < (noise_terms ? 4 : 1); ++i)
     out.push_back(at::empty({c, ch, s, o}, tables.options()));
   float* abc[3] = {nullptr, nullptr, nullptr};
   for (int i = 0; noise_terms && i < 3; ++i) abc[i] = out[i + 1].data_ptr<float>();
   launched(bt_ll_noise_terms(mult.data_ptr<uint8_t>(), inter.data_ptr<uint8_t>(),
-                             counts.data_ptr<uint8_t>(), w.data_ptr<bool>(),
+                             counts.data_ptr<uint8_t>(), u32(wbits),
                              tables.data_ptr<float>(), (int)m_rows, (int)mmax,
                              oa.data_ptr<int32_t>(), ob.data_ptr<int32_t>(),
                              out[0].data_ptr<float>(), abc[0], abc[1], abc[2],
                              c, (int)k, (int)h, (int)s, (int)ch, (int)o,
                              include_noise_row ? 1 : 0, stream()),
            "ll_noise_terms");
-  return {out, layout};
+  return out;
 }
 
 std::tuple<at::Tensor, int64_t> gibbs_sweep(
@@ -563,10 +564,12 @@ constexpr int kNestedTensors = 25;
 std::tuple<at::Tensor, int64_t> nested_sweep(
                   const std::vector<at::Tensor>& flat,
                   const std::vector<int64_t>& ints, at::Tensor pool,
-                  const at::Tensor& group_offsets,
-                  const at::Tensor& group_members, int64_t t0, int64_t t1,
+                  const at::Tensor& members, const at::Tensor& group_offsets,
+                  const at::Tensor& qrows, const at::Tensor& pool_offsets,
+                  const at::Tensor& gslot, int64_t t0, int64_t t1,
                   int64_t burn_in) {
   const auto dev = pool.device();
+  const auto cpu = at::Device(at::kCPU);
   TORCH_CHECK(dev.is_cuda() && pool.dim() == 3, "pool [P, ch, S] on CUDA");
   TORCH_CHECK(flat.size() % kNestedTensors == 0 &&
                   ints.size() * kNestedTensors == 3 * flat.size(),
@@ -574,10 +577,13 @@ std::tuple<at::Tensor, int64_t> nested_sweep(
   const int64_t ch = pool.size(1), s = pool.size(2);
   expect(pool, "pool", at::kInt, {pool.size(0), ch, s}, dev);
   const int64_t n_groups = group_offsets.size(0) - 1;
+  const int64_t n_members = members.size(0);
   TORCH_CHECK(n_groups >= 0, "group offsets [G + 1]");
-  expect(group_offsets, "group_offsets", at::kInt, {n_groups + 1}, dev);
-  expect(group_members, "group_members", at::kInt,
-         {group_members.size(0), 2}, dev);
+  expect(members, "members", at::kInt, {n_members, 4}, cpu);
+  expect(group_offsets, "group_offsets", at::kInt, {n_groups + 1}, cpu);
+  expect(qrows, "qrows", at::kInt, {qrows.size(0), 2}, cpu);
+  expect(pool_offsets, "pool_offsets", at::kInt, {n_groups + 1}, cpu);
+  expect(gslot, "gslot", at::kInt, {gslot.size(0)}, cpu);
   const int n_levels = (int)(flat.size() / kNestedTensors);
   std::vector<BtNestedLevel> host(n_levels);
   for (int l = 0; l < n_levels; ++l) {
@@ -659,25 +665,83 @@ std::tuple<at::Tensor, int64_t> nested_sweep(
       }
     }
   }
-  const c10::cuda::CUDAGuard guard(dev);
-  auto buf = at::empty({(int64_t)(n_levels * sizeof(BtNestedLevel))},
-                       pool.options().dtype(at::kByte));
-  launched(cudaMemcpyAsync(buf.data_ptr(), host.data(),
-                           n_levels * sizeof(BtNestedLevel),
-                           cudaMemcpyHostToDevice, stream()),
-           "nested_sweep (level table)");
+  // the member table with its per-level fields, checked against the levels
+  const int32_t* mem = members.data_ptr<int32_t>();
+  const int32_t* goff = group_offsets.data_ptr<int32_t>();
+  const int32_t* pofs = pool_offsets.data_ptr<int32_t>();
+  TORCH_CHECK(goff[0] == 0 && goff[n_groups] == n_members && pofs[0] == 0 &&
+                  pofs[n_groups] == gslot.size(0),
+              "group and pool offsets do not cover the members and slots");
+  std::vector<int> md((size_t)n_members * BT_MD, 0);
+  int64_t q_total = 0;
+  for (int64_t g = 0; g < n_groups; ++g) {
+    TORCH_CHECK(goff[g] <= goff[g + 1] && pofs[g] <= pofs[g + 1],
+                "group ", g, ": offsets decrease");
+    for (int64_t m = goff[g]; m < goff[g + 1]; ++m) {
+      const int32_t* r = mem + 4 * m;
+      TORCH_CHECK(0 <= r[0] && r[0] < n_levels && 0 <= r[1] &&
+                      r[1] < host[r[0]].C,
+                  "member ", m, ": no row ", r[1], " at level ", r[0]);
+      TORCH_CHECK(-1 <= r[2] && r[2] < m - goff[g], "member ", m, ": its parent ", r[2],
+                  " is not an earlier member of its group");
+      TORCH_CHECK(0 <= r[3] && r[3] <= host[r[0]].Q, "member ", m, ": ",
+                  r[3], " shared rows");
+      int* d = md.data() + (size_t)m * BT_MD;
+      d[BT_MD_LEVEL] = r[0];
+      d[BT_MD_ROW] = r[1];
+      d[BT_MD_PARENT] = r[2];
+      d[BT_MD_NQ] = r[3];
+      d[BT_MD_H] = host[r[0]].H;
+      d[BT_MD_O] = host[r[0]].O;
+      d[BT_MD_PO] = r[2] >= 0 ? host[mem[4 * (goff[g] + r[2])]].O : 0;
+      d[BT_MD_QOFF] = (int)q_total;
+      q_total += r[3];
+    }
+  }
+  TORCH_CHECK(q_total == qrows.size(0), "the members hold ", q_total,
+              " shared rows, the table ", qrows.size(0));
   int64_t words = 0;
-  const int layout = bt_nested_layout(host.data(), n_levels, (int)s, &words);
+  const int layout = bt_nested_layout(host.data(), n_levels, md.data(), goff,
+                                      (int)n_groups, pofs, (int)s, (int)t0,
+                                      (int)t1, (int)burn_in, &words);
+  // one device buffer: the level table, then md, goff, qrows, pofs, gslot
+  const c10::cuda::CUDAGuard guard(dev);
+  const size_t lv_bytes = ((n_levels * sizeof(BtNestedLevel) + 15) / 16) * 16;
+  std::vector<int> ints_buf(md);
+  ints_buf.insert(ints_buf.end(), goff, goff + n_groups + 1);
+  const size_t q_at = ints_buf.size();
+  ints_buf.insert(ints_buf.end(), qrows.data_ptr<int32_t>(),
+                  qrows.data_ptr<int32_t>() + 2 * qrows.size(0));
+  const size_t p_at = ints_buf.size();
+  ints_buf.insert(ints_buf.end(), pofs, pofs + n_groups + 1);
+  const size_t s_at = ints_buf.size();
+  ints_buf.insert(ints_buf.end(), gslot.data_ptr<int32_t>(),
+                  gslot.data_ptr<int32_t>() + gslot.size(0));
+  std::vector<uint8_t> blob(lv_bytes + ints_buf.size() * sizeof(int));
+  std::memcpy(blob.data(), host.data(), n_levels * sizeof(BtNestedLevel));
+  std::memcpy(blob.data() + lv_bytes, ints_buf.data(),
+              ints_buf.size() * sizeof(int));
+  auto buf = at::empty({(int64_t)blob.size()}, pool.options().dtype(at::kByte));
+  launched(cudaMemcpyAsync(buf.data_ptr(), blob.data(), blob.size(),
+                           cudaMemcpyHostToDevice, stream()),
+           "nested_sweep (tables)");
+  const int* ib = reinterpret_cast<const int*>(buf.data_ptr<uint8_t>() +
+                                               lv_bytes);
   at::Tensor scratch;
   if (words > 0)
     scratch = at::empty({n_groups * ch, words}, pool.options().dtype(at::kFloat));
+  // the launch order of the groups (bt_nested_sweep splits them by size)
+  auto glist = at::empty({std::max<int64_t>(n_groups, 1)},
+                         pool.options().dtype(at::kInt));
+  const auto side = at::cuda::getStreamFromPool(false, dev.index());
   launched(bt_nested_sweep(reinterpret_cast<const BtNestedLevel*>(
                                buf.data_ptr()),
-                           n_levels, host.data(), pool.data_ptr<int>(),
-                           group_offsets.data_ptr<int>(),
-                           group_members.data_ptr<int>(), (int)n_groups,
-                           (int)ch, (int)s, (int)t0, (int)t1, (int)burn_in,
-                           ptr_or_null(scratch), stream()),
+                           n_levels, host.data(), pool.data_ptr<int>(), ib,
+                           md.data(), ib + md.size(), goff, (int)n_groups,
+                           ib + q_at, ib + p_at, pofs, ib + s_at,
+                           glist.data_ptr<int>(), (int)ch, (int)s, (int)t0,
+                           (int)t1, (int)burn_in, ptr_or_null(scratch),
+                           stream(), side.stream()),
            "nested_sweep");
   return {pool, layout};
 }

@@ -283,10 +283,12 @@ __device__ __forceinline__ void bt_count_haps(const BtPairs& sm,
 // Up to BT_REG_MAX_O outcomes: one thread per (pair, sample) row keeps the
 // row's logits and exps in registers.
 #define BT_REG_MAX_O 16
+template <class Rand>
 __device__ inline void bt_draw_rows_in_registers(const BtBlock& bk,
                                                  const BtPairs& sm,
                                                  const BtDims& d,
-                                                 const BtOutcomes& oc) {
+                                                 const BtOutcomes& oc,
+                                                 const Rand& rnd) {
   const int S = d.S, O = d.O, H1 = d.H + 1;
   for (int row = bk.tid; row < bk.np * S; row += bk.nt) {
     const int p = d.dS(row), pl = sm.ploidy[row];
@@ -308,8 +310,7 @@ __device__ inline void bt_draw_rows_in_registers(const BtBlock& bk,
 #pragma unroll
     for (int o = 0; o < BT_REG_MAX_O; ++o)
       if (o < O) total += v[o];
-    const float u =
-        bt_uniform(bt_key(sm, p, BT_K_CAT), (uint32_t)(row - p * S)) * total;
+    const float u = rnd.u_cat(sm, p, row - p * S) * total;
     float c = 0.0f;
     int cnt = 0;
 #pragma unroll
@@ -337,15 +338,58 @@ __device__ __forceinline__ void bt_keys_from_freq(const BtBlock& bk,
   }
 }
 
+// The step's keys and random numbers: derived in the step from each pair's
+// chain key (BtDeriveRand, the default), or read from a record that a
+// producer warp derived ahead (nested_sweep.cu); and the size draw's
+// lgamma of small integers, computed or looked up in a table of the same
+// lgammaf values. Either gives the same bits.
+struct BtDeriveRand {
+  // k_cat, k_freq = fold_in(fold_in(chain, t), 0..1)
+  __device__ void keys(const BtBlock& bk, const BtPairs& sm, int t) const {
+    for (int i = bk.tid; i < 2 * bk.np; i += bk.nt)
+      bt_set_key(sm, i >> 1, BT_K_CAT + (i & 1),
+                 bt_fold_in(bt_fold_in(bt_key(sm, i >> 1, BT_K_CHAIN),
+                                       (uint32_t)t),
+                            (uint32_t)(i & 1)));
+  }
+  __device__ void keys2(const BtBlock& bk, const BtPairs& sm) const {
+    bt_keys_from_freq(bk, sm);
+  }
+  __device__ float u_cat(const BtPairs& sm, int p, int s) const {
+    return bt_uniform(bt_key(sm, p, BT_K_CAT), (uint32_t)s);
+  }
+  __device__ float u_sel(const BtPairs& sm, int p, int h) const {
+    return bt_uniform(bt_key(sm, p, BT_K_SEL), (uint32_t)h);
+  }
+  __device__ float gx(const BtPairs& sm, int p, int h) const {
+    return bt_gamma_normal0(bt_key(sm, p, BT_K_NORM), h);
+  }
+  __device__ float gu(const BtPairs& sm, int p, int h) const {
+    return bt_gamma_uniform0(bt_key(sm, p, BT_K_UNIF), h);
+  }
+  __device__ float u_size(const BtPairs& sm, int p) const {
+    return bt_uniform(bt_key(sm, p, BT_K_SIZE), 0u);
+  }
+  __device__ float lgamma(float x) const { return lgammaf(x); }
+};
+
+// The barrier between the step's phases: the block's (the default), or
+// the consumer warps' of a block that also holds a producer.
+struct BtSyncBlock {
+  __device__ void operator()() const { __syncthreads(); }
+};
+
 // Draws o_sel[s] for every sample of every pair of the block into sm.osel
 // and resamples sm.freqs, at iteration t of each pair's chain key
-// (sm.keys[BT_K_CHAIN]). Every thread of the block calls it, after a
-// barrier that follows the last write of the pairs' state. Each key level
-// and each random number is derived where its parent key is first known,
-// beside the phase that runs then.
+// (sm.keys[BT_K_CHAIN]). Every thread that sync() joins calls it (bk
+// numbers them), after a barrier that follows the last write of the pairs'
+// state. Each key level and each random number is derived (BtDeriveRand)
+// where its parent key is first known, beside the phase that runs then.
+template <class Rand = BtDeriveRand, class Sync = BtSyncBlock>
 __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
                                      const BtDims& d, const BtOutcomes& oc,
-                                     int t) {
+                                     int t, const Rand& rnd = Rand(),
+                                     Sync sync = Sync()) {
   const int S = d.S, O = d.O, H = d.H, E = d.E, H1 = d.H + 1, np = bk.np;
   const int rows = np * S;
   const bool two = bt_two_level(O);
@@ -363,43 +407,38 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
     sm.logf[i] = lf;
   }
   for (int i = bk.tid; i < np * H; i += bk.nt) sm.hapc[i] = 0;
-  for (int i = bk.tid; i < 2 * np; i += bk.nt)
-    bt_set_key(sm, i >> 1, BT_K_CAT + (i & 1),
-               bt_fold_in(bt_fold_in(bt_key(sm, i >> 1, BT_K_CHAIN),
-                                     (uint32_t)t),
-                          (uint32_t)(i & 1)));
-  __syncthreads();
+  rnd.keys(bk, sm, t);
+  sync();
 
   // ---- categorical outcome per sample: max-shifted inverse CDF; beside
   // it the second key level ----
-  bt_keys_from_freq(bk, sm);
+  rnd.keys2(bk, sm);
   if (!two && O <= BT_REG_MAX_O) {
-    bt_draw_rows_in_registers(bk, sm, d, oc);
+    bt_draw_rows_in_registers(bk, sm, d, oc, rnd);
   } else if (!two) {
     // logits into the exp cache, each row's max, the exps, the draw
     for (BtRowCol it(bk.tid, bk.nt, O); it.r < rows; it.next())
       sm.ex[it.r * E + it.c] =
           bt_logit(d, oc, sm.logf + d.dS(it.r) * H1, sm.ll + it.r * O,
                    sm.ploidy[it.r], it.c);
-    __syncthreads();
+    sync();
     for (int row = bk.tid; row < rows; row += bk.nt) {
       const float* e = sm.ex + row * E;
       float m = -INFINITY;
       for (int o = 0; o < O; ++o) m = fmaxf(m, e[o]);
       sm.mrow[row] = m;
     }
-    __syncthreads();
+    sync();
     for (BtRowCol it(bk.tid, bk.nt, O); it.r < rows; it.next()) {
       float* e = sm.ex + it.r * E + it.c;
       *e = expf(*e - sm.mrow[it.r]);
     }
-    __syncthreads();
+    sync();
     for (int row = bk.tid; row < rows; row += bk.nt) {
       const int p = d.dS(row);
       const float* e = sm.ex + row * E;
-      const int o = bt_inverse_cdf(
-          O, bt_uniform(bt_key(sm, p, BT_K_CAT), (uint32_t)(row - p * S)),
-          [e](int k) { return e[k]; });
+      const int o = bt_inverse_cdf(O, rnd.u_cat(sm, p, row - p * S),
+                                   [e](int k) { return e[k]; });
       sm.osel[row] = o;
       bt_count_haps(sm, d, oc, p, o);
     }
@@ -414,7 +453,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
         sm.ex[it.r * E + it.c] =
             bt_logit(d, oc, sm.logf + d.dS(it.r) * H1, sm.ll + it.r * O,
                      sm.ploidy[it.r], it.c);
-      __syncthreads();
+      sync();
     }
     for (int i = bk.tid; i < np * SG; i += bk.nt) {
       const int p = i / SG, g = (i % SG) / S, row = p * S + i % S;
@@ -434,20 +473,20 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
       }
       sm.bmax[i] = m;
     }
-    __syncthreads();
+    sync();
     for (int row = bk.tid; row < rows; row += bk.nt) {
       const int p = d.dS(row), s = row - p * S;
       float m = -INFINITY;
       for (int g = 0; g < G; ++g) m = fmaxf(m, sm.bmax[p * SG + g * S + s]);
       sm.mrow[row] = m;
     }
-    __syncthreads();
+    sync();
     if (d.X) {
       for (BtRowCol it(bk.tid, bk.nt, O); it.r < rows; it.next()) {
         float* e = sm.ex + it.r * E + it.c;
         *e = expf(*e - sm.mrow[it.r]);
       }
-      __syncthreads();
+      sync();
     }
     for (int i = bk.tid; i < np * SG; i += bk.nt) {
       const int p = i / SG, g = (i % SG) / S, row = p * S + i % S;
@@ -468,7 +507,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
       }
       sm.bsum[i] = acc;
     }
-    __syncthreads();
+    sync();
     // the block of each sample's draw (osel, for now) and the remainder
     // left for it (bmax, free from here)
     for (int row = bk.tid; row < rows; row += bk.nt) {
@@ -476,8 +515,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
       const float* bs = sm.bsum + p * SG + s;
       float total = 0.0f;
       for (int g = 0; g < G; ++g) total += bs[g * S];
-      const float u =
-          bt_uniform(bt_key(sm, p, BT_K_CAT), (uint32_t)s) * total;
+      const float u = rnd.u_cat(sm, p, s) * total;
       float run = 0.0f;
       int cnt = 0;
       for (int g = 0; g < G; ++g) {
@@ -490,7 +528,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
       sm.bmax[p * SG + s] = u - (bcs - bs[gi * S]);
       sm.osel[row] = gi;
     }
-    __syncthreads();
+    sync();
     if (!d.X) {
       // the chosen block's exps, recomputed once each
       for (BtRowCol it(bk.tid, bk.nt, BT_OBLOCK); it.r < rows; it.next()) {
@@ -502,7 +540,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
                          sm.mrow[it.r])
                   : 0.0f;
       }
-      __syncthreads();
+      sync();
     }
     for (int row = bk.tid; row < rows; row += bk.nt) {
       const int p = d.dS(row), s = row - p * S;
@@ -521,7 +559,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
       bt_count_haps(sm, d, oc, p, o);
     }
   }
-  __syncthreads();
+  sync();
 
   // ---- spike-and-slab frequency resample (sample_frequencies): the size
   // draw's log-probabilities, each item summing the pair's counts itself;
@@ -543,26 +581,26 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
                 nt = (float)n_total;
     const float tf = (float)tt;
     const float j = np_f + tf;
-    const float log_card = (lgammaf(nv - np_f + 1.0f) - lgammaf(tf + 1.0f)) -
-                           lgammaf(nv - j + 1.0f);
+    const float log_card =
+        (rnd.lgamma(nv - np_f + 1.0f) - rnd.lgamma(tf + 1.0f)) -
+        rnd.lgamma(nv - j + 1.0f);
     const float log_prior = j * logf(sparsity) + (nv - j) * log1pf(-sparsity);
-    const float log_assign = lgammaf(j) - lgammaf(nt + j);
+    const float log_assign = rnd.lgamma(j) - rnd.lgamma(nt + j);
     const float lp = (log_card + log_prior) + log_assign;
     sm.logp[i] = j <= nv ? lp : BT_NEG_INF;
   }
   for (int i = bk.tid; i < np * H; i += bk.nt) {
     const int p = d.dH(i), h = i - p * H;
     const bool elig = sm.hvalid[i] && sm.hapc[i] == 0;
-    sm.gkey[i] = elig ? bt_uniform(bt_key(sm, p, BT_K_SEL), (uint32_t)h)
-                      : -1.0f;
+    sm.gkey[i] = elig ? rnd.u_sel(sm, p, h) : -1.0f;
     if (sm.hvalid[i]) {
-      sm.gx[i] = bt_gamma_normal0(bt_key(sm, p, BT_K_NORM), h);
-      sm.gu[i] = bt_gamma_uniform0(bt_key(sm, p, BT_K_UNIF), h);
+      sm.gx[i] = rnd.gx(sm, p, h);
+      sm.gu[i] = rnd.gu(sm, p, h);
     }
   }
   for (int p = bk.tid; p < np; p += bk.nt)
-    sm.fsc[p * BT_NFSC + BT_F_USIZE] = bt_uniform(bt_key(sm, p, BT_K_SIZE), 0u);
-  __syncthreads();
+    sm.fsc[p * BT_NFSC + BT_F_USIZE] = rnd.u_size(sm, p);
+  sync();
   for (int i = bk.tid; i < np * H1; i += bk.nt) {
     const int p = d.dH1(i);
     if (sm.isc[p * BT_NISC + BT_I_RAW] == 0) continue;
@@ -571,7 +609,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
     for (int tt = 0; tt <= H; ++tt) m = fmaxf(m, lp[tt]);
     sm.pexp[i] = expf(sm.logp[i] - m);
   }
-  __syncthreads();
+  sync();
   for (int p = bk.tid; p < np; p += bk.nt) {
     int* sc = sm.isc + p * BT_NISC;
     if (sc[BT_I_RAW] == 0) continue;
@@ -579,7 +617,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
     sc[BT_I_EXPAND] = bt_inverse_cdf(H1, sm.fsc[p * BT_NFSC + BT_F_USIZE],
                                      [e](int k) { return e[k]; });
   }
-  __syncthreads();
+  sync();
   for (int i = bk.tid; i < np * H; i += bk.nt) {
     const int p = d.dH(i), h = i - p * H;
     const int* sc = sm.isc + p * BT_NISC;
@@ -601,7 +639,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
                              sm.gu[i])
                        : 0.0f;
   }
-  __syncthreads();
+  sync();
   for (int i = bk.tid; i < np * H; i += bk.nt) {
     const int p = d.dH(i), h = i - p * H;
     if (sm.isc[p * BT_NISC + BT_I_RAW] == 0) continue;
@@ -610,7 +648,7 @@ __device__ inline void bt_gibbs_step(const BtBlock& bk, const BtPairs& sm,
     for (int jh = 0; jh < H; ++jh) total += gm[jh];
     sm.freqs[p * H1 + h] = gm[h] / fmaxf(total, 1e-30f);
   }
-  __syncthreads();
+  sync();
 }
 
 // Loads a block's pairs' per-cluster inputs and chain keys

@@ -48,7 +48,9 @@ inline int bt_sm_count() {
 // scratch and compute the same layout again.
 int bt_gibbs_layout(int S, int O, int H, bool ll_written, int64_t* scratch);
 int bt_kmer_cap_layout(int K, int V, int H, int64_t* scratch);
-int bt_ll_noise_terms_layout(int K, int H, int ch, int O, int mmax);
+// 0 where a tile of 32 k-mers fits the card's opt-in shared memory, else -1
+int bt_ll_noise_terms_layout(int64_t C, int K, int H, int S, int O, int ch,
+                             int noise);
 
 cudaError_t bt_subsample_masks(const unsigned* base_keys, const unsigned* fold,
                                const int64_t* cluster_id,
@@ -56,8 +58,9 @@ cudaError_t bt_subsample_masks(const unsigned* base_keys, const unsigned* fold,
                                int ch, int K, float rate, unsigned salt,
                                cudaStream_t stream);
 
+// wbits [C, ch, ceil(K / 32)]: the masks packed as kernels.pack_bits does
 cudaError_t bt_ll_noise_terms(const uint8_t* mult, const uint8_t* inter,
-                              const uint8_t* counts, const bool* w,
+                              const uint8_t* counts, const unsigned* wbits,
                               const float* tables, int m_rows, int mmax,
                               const int* oa, const int* ob, float* ll,
                               float* A, float* B, float* C0, int64_t C, int K,
@@ -191,10 +194,30 @@ struct BtNestedLevel {
   int C, H, O, Q, V, A, mmax, o_pad;
 };
 
+// The coupled scan's member table [N, BT_MD] int32: the groups' members in
+// rank order, each row (level, row, its containment parent's index within
+// the group or -1, its valid shared rows, the word offset of its state in
+// the on-chip layout (bt_nested_layout fills it), H, O, the parent's O,
+// its first row of the shared-row table). The shared-row table [NQ, 2]
+// holds (q, the slot within the group's dense pool range); the group's
+// dense slots map to global pool slots through gslot [pofs[g]:pofs[g+1]].
+enum {
+  BT_MD_LEVEL, BT_MD_ROW, BT_MD_PARENT, BT_MD_NQ, BT_MD_WOFF, BT_MD_H,
+  BT_MD_O, BT_MD_PO, BT_MD_QOFF, BT_MD
+};
+
 cudaError_t bt_nested_sweep(const BtNestedLevel* levels_dev, int n_levels,
                             const BtNestedLevel* levels_host, int* pool,
-                            const int* group_offsets, const int* group_members,
-                            int n_groups, int ch, int S, int t0, int t1,
-                            int burn_in, float* scratch, cudaStream_t stream);
-int bt_nested_layout(const BtNestedLevel* levels_host, int n_levels, int S,
+                            const int* md_dev, int* md_host,
+                            const int* goff_dev, const int* goff_host,
+                            int n_groups, const int* qrows_dev,
+                            const int* pofs_dev, const int* pofs_host,
+                            const int* gslot_dev, int* glist_dev, int ch,
+                            int S, int t0, int t1, int burn_in,
+                            float* scratch, cudaStream_t stream,
+                            cudaStream_t side);
+// 0: the on-chip layout; 1, 2: the global-memory variants
+int bt_nested_layout(const BtNestedLevel* levels_host, int n_levels,
+                     int* md_host, const int* goff_host, int n_groups,
+                     const int* pofs_host, int S, int t0, int t1, int burn_in,
                      int64_t* scratch);

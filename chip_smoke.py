@@ -5,10 +5,9 @@
 Phases, one line each; any failure raises and the script exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the thirteen CUDA C++ kernels (seven with a global-memory
+  2. build    the thirteen CUDA C++ kernels (six with a global-memory
               variant for shapes past the card's shared memory) for sm_90a,
-              through
-              torch.utils.cpp_extension (one compiler per source, in
+              through torch.utils.cpp_extension (one compiler per source, in
               parallel);
   3. data     a simulated README-row-3-shaped unit: 13 samples at 50x,
               k = 55, SNVs, indels, dense 2/4/6-SNV clusters, SV deletions
@@ -149,6 +148,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 # 32-bit integer operations/s: 64 INT32 lanes per SM against 128 FP32
 PEAK_INT_OPS_S = PEAK_OPS_S / 2
+# streaming multiprocessors: a serial chain of steps runs on one of them
+SMS = 132
 
 # the kernels each path must launch: the main unit's genotype_unit and
 # genotype_unit_joint, the coupled unit's genotype_unit (its
@@ -163,7 +164,6 @@ JOINT_KERNELS = ("subsample_masks", "ll_noise_terms", "joint_step",
 COUPLED_KERNELS = ("kmer_cap", "bucket_stats", "nested_sweep", "noise_rates",
                    "gamma_draw")
 # the global-memory variants (kernels.GLOBAL) the wide unit's paths launch
-# (ll_noise_terms' from H256, past the unit's H128: check_beyond_unit)
 WIDE_KERNELS = ("gibbs_sweep_global", "noise_step_global", "kmer_cap_global",
                 "bucket_stats_global", "nested_sweep_global")
 WIDE_JOINT_KERNELS = ("joint_step_global", "kmer_cap_global",
@@ -1453,37 +1453,79 @@ def cap_cost(bucket, w0):
     return nbytes, ops
 
 
+def valid_shared_rows(setup):
+    """Per level, each row's count of valid shared k-mers (a list)."""
+    return [[0] * lv.ll.shape[0] if lv.sh is None
+            else lv.sh["valid"].sum(1).tolist() for lv in setup.levels]
+
+
+def nested_member_ops(lv, q, s):
+    """(float32 ops, integer ops) of one coupled-scan step for one chain of
+    a row of level lv with q valid shared k-mers: the Gibbs step
+    (step_ops), the shared k-mer terms (four operations per valid (k-mer,
+    sample, outcome) and eight per valid (k-mer, sample)) and the MAC
+    fold."""
+    o = lv.ll.shape[3]
+    flt, ints = step_ops(1, s, o, lv.hap_valid.shape[1])
+    if lv.sh is not None:
+        flt += q * (4 * s * o + 8 * s)
+        if lv.mac is not None:
+            v, a = lv.mac["acc"].shape[3:]
+            flt += s * v * (4 * q + 10 + 4 * a)
+    return flt, ints
+
+
 def nested_cost(setup, iters):
     """(bytes, float32 ops, integer ops) of a nested_sweep launch of
     `iters` iterations over the clusters its groups list (padded rows are
     not sampled): each level's tables of those rows read once and their
     carried state read and written once; per (cluster, chain, iteration)
-    the Gibbs step (step_ops), the shared k-mer terms (four operations per
-    valid (k-mer, sample, outcome)) and the MAC fold."""
+    nested_member_ops."""
     s = setup.pool.shape[2]
     nbytes = setup.pool.numel() * 8
     ops = i_ops = 0
     members = setup.groups[1].to(torch.int64)
+    qv = valid_shared_rows(setup)
     for l, lv in enumerate(setup.levels):
-        rows = members[members[:, 0] == l, 1].to(lv.ll.device)
+        rows = members[members[:, 0] == l, 1]
         c, ch, _, o = lv.ll.shape
-        c_r = rows.numel()
-        h = lv.hap_valid.shape[1]
         tensors = [lv.ll, lv.freqs, lv.ocur, lv.tally, lv.retain, lv.ploidy]
-        per, per_i = step_ops(c_r, s, o, h)
         if lv.sh is not None:
             tensors += [lv.sh[f] for f in ("slot", "valid", "counts", "inter",
                                            "dip", "w", "tcut")]
-            q_r = int(lv.sh["valid"][rows].sum())
-            per += q_r * (4 * s * o + 8 * s)
             if lv.mac is not None:
-                v, a = lv.mac["acc"].shape[3:]
                 tensors += [lv.mac[f] for f in ("mem", "n_hv", "ha", "acc")]
-                per += s * v * (4 * q_r + c_r * (10 + 4 * a))
-        nbytes += sum(t.numel() * t.element_size() for t in tensors) * c_r / c
-        ops += ch * iters * per
-        i_ops += ch * iters * per_i
+        nbytes += (sum(t.numel() * t.element_size() for t in tensors)
+                   * rows.numel() / c)
+        for r in rows.tolist():
+            f, i = nested_member_ops(lv, qv[l][r], s)
+            ops += ch * iters * f
+            i_ops += ch * iters * i
     return nbytes, ops, i_ops
+
+
+def nested_bound(setup, iters):
+    """(bound_ms, bound_by, chain_ms) of a nested_sweep launch of `iters`
+    iterations: the larger of the launch's roofline (nested_cost over the
+    whole card) and its deepest serial chain, one (group, chain)'s member
+    steps in order, whose operations run at one SM's share of the float32
+    and INT32 peaks (each member step depends on the one before it)."""
+    s = setup.pool.shape[2]
+    offsets, members = setup.groups
+    qv = valid_shared_rows(setup)
+    chain_ms = 0.0
+    for g in range(offsets.numel() - 1):
+        flt = ints = 0
+        for l, r in members[int(offsets[g]):int(offsets[g + 1])].tolist():
+            f, i = nested_member_ops(setup.levels[l], qv[l][r], s)
+            flt += f
+            ints += i
+        chain_ms = max(chain_ms, iters * max(flt / (PEAK_OPS_S / SMS),
+                                             ints / (PEAK_INT_OPS_S / SMS))
+                       * 1e3)
+    bms, by = bound(*nested_cost(setup, iters))
+    return max(bms, chain_ms), by if bms >= chain_ms else "operations", \
+        chain_ms
 
 
 def check_nested(book, setup, ch):
@@ -1534,8 +1576,8 @@ def check_nested(book, setup, ch):
     ms = cuda_ms(lambda: window(kernels.nested_sweep, setup, win0), 3)
     pms = event_ms(lambda: window(kernels.PLAIN["nested_sweep"], setup, win0))
     full_ms = cuda_ms(lambda: setup.clone().run(), 2)
-    bms, by = bound(*nested_cost(setup, NESTED_WINDOW))
-    full_bms, _ = bound(*nested_cost(setup, setup.num_iters))
+    bms, by, chain_ms = nested_bound(setup, NESTED_WINDOW)
+    full_bms, _, full_chain_ms = nested_bound(setup, setup.num_iters)
     # the deepest group alone: the serial chain of steps that bounds the scan
     offsets, members = setup.groups
     sizes = offsets[1:] - offsets[:-1]
@@ -1546,6 +1588,7 @@ def check_nested(book, setup, ch):
         kernels.nested_sweep, dataclasses.replace(setup, groups=deep),
         (0, setup.num_iters, setup.burn_in)), 2)
     n_groups = offsets.numel() - 1
+    us_step = 1e3 * deep_ms / (int(sizes[g]) * setup.num_iters)
     book.timing("nested_sweep", True, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=None,
                 shape=f"{len(setup.levels)} levels, {n_groups} groups "
@@ -1555,10 +1598,12 @@ def check_nested(book, setup, ch):
                  f"iterations {[w for _, w in windows]} (t0, t1, burn-in): "
                  f"tallies agree on {agree}/{pairs} (cluster, chain) pairs, "
                  f"MAC within {mac_err:.3g}; first window {ms:.3f} ms, plain "
-                 f"{pms:.3f} ms, bound {bms:.4f} ms ({by}); all "
-                 f"{setup.num_iters} iterations {full_ms:.3f} ms, bound "
-                 f"{full_bms:.4f} ms; the deepest group ({int(sizes[g])} "
-                 f"levels) alone {deep_ms:.3f} ms")
+                 f"{pms:.3f} ms, bound {bms:.4f} ms ({by}; the deepest "
+                 f"chain's {chain_ms:.4f} ms); all {setup.num_iters} "
+                 f"iterations {full_ms:.3f} ms, bound {full_bms:.4f} ms "
+                 f"(chain {full_chain_ms:.4f} ms); the deepest group "
+                 f"({int(sizes[g])} levels) alone {deep_ms:.3f} ms, "
+                 f"{us_step:.3f} us per chain step")
     return lines
 
 
@@ -2484,14 +2529,15 @@ def random_chunk(gen, dev, c, k, h, v, s, ch, a_cap):
 
 
 def check_beyond_unit(book, dev, seed):
-    """The global-memory variants that the wide unit's shapes do not reach,
-    on inputs drawn on the card: ll_noise_terms at H256 x 30 samples (the
-    first class whose 2·O outcome words pass shared memory) and at H4096 x
-    2 samples (the largest class the compiler's beam forms at 30 samples x
-    32 sample haplotypes, 3,840 paths; its LL [S, O] alone is 67 MB), and
-    bucket_stats on an H64 chunk of 20,000 k-mer slots (K x W member words
-    of 160 KB, past shared memory with the rest of its layout). LL within
-    LL_RTOL / LL_ATOL, stats as check_stats. Returns the lines."""
+    """Shapes that the wide unit does not reach, on inputs drawn on the
+    card: ll_noise_terms at H256 x 30 samples (outcome tables past shared
+    memory) and at H4096 x 2 samples (the largest class the compiler's beam
+    forms at 30 samples x 32 sample haplotypes, 3,840 paths; its LL [S, O]
+    alone is 67 MB; its multiplicities read in place), and bucket_stats'
+    global-memory variant on an H64 chunk of 20,000 k-mer slots (K x W
+    member words of 160 KB, past shared memory with the rest of its
+    layout). LL within LL_RTOL / LL_ATOL, stats as check_stats. Returns the
+    lines."""
     from bayestyper_tpu_torch import kernels
     from bayestyper_tpu_torch.model import gibbs
     from bayestyper_tpu_torch.ops.distributions import (

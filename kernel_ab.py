@@ -16,11 +16,16 @@ units it records, per size class of the main unit and of the wide unit
   * noise_step at t = 7 and joint_step at t = 200 (burn-in 100) from the
     class's noise terms: the sha256 of frequencies, drawn outcomes, int32
     statistics (and tally);
+  * ll_noise_terms, genotype form (LL) and noise form (LL, A, B, C0): the
+    sha256 of each, the largest |LL - plain| and the CUDA-event median of
+    each form (also at chip_smoke.BEYOND_LL's H256 x 30 and H4096 x 2
+    samples, on inputs drawn on the card from the seed);
 
 each with its CUDA-event median time (3 runs after a warm-up; noise_step
 and joint_step per launch of 10 back to back); the coupled unit's
 nested_sweep over all 350 iterations (sha256 of every level's tally,
-frequencies and MAC accumulator, and its time); and the sha256 of the VCFs
+frequencies and MAC accumulator, and its time; the deepest group alone,
+and its time per chain step); and the sha256 of the VCFs
 that genotype_unit and genotype_unit_joint write for the main, coupled and
 wide units, with their phase seconds. Run parent, change, change, parent
 one after another on one card (each in its own process: the two trees'
@@ -108,6 +113,7 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
         ll, _ = kernels.ll_noise_terms(*ll_args, include_noise_row=True)
         llg, (a_t, b_t, c0_t) = kernels.ll_noise_terms(
             *ll_args, include_noise_row=False, noise_terms=True)
+        ll_row = ll_rows(cs, ll_args, (ll,), (llg, a_t, b_t, c0_t))
         c0_t[..., -1] = 0.0
         ll_n = ll.reshape(n, s, o)
         llg_n = (llg - c0_t).reshape(n, s, o)
@@ -150,7 +156,7 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
                                         device=dev)
         row = {
             "class": tag, "pairs": n, "s": s, "o": o, "h": pc.h,
-            "iters": iters,
+            "iters": iters, **ll_row,
             "sweep_sha": sha(*sweep([(0, iters)])),
             "sweep_windows_sha": sha(*sweep([(0, 60), (60, iters)])),
             "noise_sha": sha(*nstep()),
@@ -172,6 +178,10 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
         row["noise_ms"] = cs.cuda_ms(lambda: reps("noise_step"), 3) / REPS
         row["joint_ms"] = cs.cuda_ms(
             lambda: reps("joint_step", tally, burn_in), 3) / REPS
+        cs.log(f"  {tag}: ll_noise_terms {row['ll_ms']:.4f} / noise form "
+               f"{row['llnoise_ms']:.4f} ms, |LL - plain| <= "
+               f"{row['ll_err']:.3g}; ll {row['ll_sha'][:12]} noise "
+               f"{row['llnoise_sha'][:12]}")
         cs.log(f"  {tag} ({n} pairs): sweep {row['sweep_ms']:.3f} ms, "
                f"noise {row['noise_ms']:.4f} ms, joint {row['joint_ms']:.4f} "
                f"ms; sweep {row['sweep_sha'][:12]} windows "
@@ -179,6 +189,66 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
                f"{row['noise_sha'][:12]} joint {row['joint_sha'][:12]}")
         rows.append(row)
         del bucket, ll_n, llg_n, a_n, b_n
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ll_rows(cs, ll_args, ll_out, noise_out):
+    """ll_noise_terms' fingerprints, its largest |LL - plain| over both
+    forms and the time of each form, from the outputs of one call each."""
+    from bayestyper_tpu_torch import kernels
+
+    plain = kernels.PLAIN["ll_noise_terms"]
+    err = 0.0
+    for kw, got in ((dict(include_noise_row=True), ll_out[0]),
+                    (dict(include_noise_row=False, noise_terms=True),
+                     noise_out[0])):
+        want, _ = plain(*ll_args, **kw)
+        err = max(err, float((got - want).abs().max()))
+        del want
+    return {
+        "ll_sha": sha(*ll_out), "llnoise_sha": sha(*noise_out),
+        "ll_err": err,
+        "ll_ms": cs.cuda_ms(lambda: kernels.ll_noise_terms(*ll_args), 5),
+        "llnoise_ms": cs.cuda_ms(lambda: kernels.ll_noise_terms(
+            *ll_args, include_noise_row=False, noise_terms=True), 5),
+    }
+
+
+def beyond_ll_rows(cs, dev, seed):
+    """ll_noise_terms at chip_smoke.BEYOND_LL's shapes, on inputs drawn on
+    the card from the seed as chip_smoke.check_beyond_unit draws them."""
+    import numpy as np
+    import torch
+
+    from bayestyper_tpu_torch import kernels
+    from bayestyper_tpu_torch.model import gibbs
+    from bayestyper_tpu_torch.ops.distributions import (
+        np_build_count_log_prob_tables)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for h, s, c, k, ch in cs.BEYOND_LL:
+        bucket, _ = cs.random_chunk(gen, dev, c, k, h, 1, s, ch, 2)
+        w = torch.rand((c, ch, k), generator=gen, device=dev) < 0.5
+        osp = gibbs.outcome_tensors(h, dev)
+        mmax = 16
+        tables = torch.from_numpy(np_build_count_log_prob_tables(
+            np.full(s, 0.4), np.full(s, 6.0), np.full(s, 1e-3), mmax)
+            .astype(np.float32)).to(dev)
+        args = (bucket.mult, bucket.inter_mult, bucket.counts, w, tables,
+                mmax, osp.oa32, osp.ob32)
+        ll, _ = kernels.ll_noise_terms(*args, include_noise_row=True)
+        llg, abc = kernels.ll_noise_terms(*args, include_noise_row=False,
+                                          noise_terms=True)
+        row = {"class": f"H{h}/K{k}/C{c} x{s} samples",
+               **ll_rows(cs, args, (ll,), (llg,) + tuple(abc))}
+        cs.log(f"  {row['class']}: ll_noise_terms {row['ll_ms']:.3f} / noise "
+               f"form {row['llnoise_ms']:.3f} ms, |LL - plain| <= "
+               f"{row['ll_err']:.3g}; ll {row['ll_sha'][:12]} noise "
+               f"{row['llnoise_sha'][:12]}")
+        rows.append(row)
+        del bucket, w, args, ll, llg, abc
         torch.cuda.empty_cache()
     return rows
 
@@ -212,11 +282,25 @@ def nested_row(cs, unit, samples, ploidy, opts, dev):
         parts += [lv.tally, lv.freqs]
         if lv.mac is not None:
             parts.append(lv.mac["acc"])
+    import torch
+
+    offsets, members = setup.groups
+    sizes = (offsets[1:] - offsets[:-1]).tolist()
+    g = max(range(len(sizes)), key=lambda i: sizes[i])
+    deep = dataclasses.replace(setup, groups=(
+        torch.tensor([0, sizes[g]], dtype=torch.int32),
+        members[int(offsets[g]):int(offsets[g + 1])]))
+    deep_ms = cs.cuda_ms(lambda: deep.clone().run(), 3)
     row = {"levels": len(setup.levels), "iters": setup.num_iters,
            "nested_sha": sha(*parts),
-           "nested_ms": cs.cuda_ms(lambda: setup.clone().run(), 3)}
+           "nested_ms": cs.cuda_ms(lambda: setup.clone().run(), 3),
+           "deep_members": sizes[g], "deep_ms": deep_ms,
+           "deep_us_per_chain_step": 1e3 * deep_ms / (sizes[g]
+                                                      * setup.num_iters)}
     cs.log(f"  nested_sweep ({row['levels']} levels x {row['iters']} it.): "
-           f"{row['nested_ms']:.3f} ms, {row['nested_sha'][:12]}")
+           f"{row['nested_ms']:.3f} ms, {row['nested_sha'][:12]}; the "
+           f"deepest group ({sizes[g]} members) alone {deep_ms:.3f} ms, "
+           f"{row['deep_us_per_chain_step']:.3f} us per chain step")
     return row
 
 
@@ -311,6 +395,7 @@ def main():
     unit = cluster(genome, samples, vcf_path)
     result["classes"] += class_rows(cs, unit, samples, ploidy, opts, dev,
                                     "wide")
+    result["beyond_ll"] = beyond_ll_rows(cs, dev, args.seed)
     result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy, opts,
                                   tmp, "wide"))
     with open(args.out, "w") as f:

@@ -88,11 +88,60 @@ def test_step_sections_marks_every_barrier_of_the_step():
     out = step_sections.instrument(src)
     start = out.index("inline void bt_gibbs_step(")
     body = out[start:out.index("\n}\n", start)]
-    barriers = body.count("__syncthreads();")
+    barriers = body.count("sync();")
     assert barriers > 0
-    assert body.count("__syncthreads(); BT_SEC_MARK();") == barriers
+    assert body.count("sync(); BT_SEC_MARK();") == barriers
     assert "long long bt_t = clock64();" in body
     # nothing outside the step is marked, and the counters are declared
     rest = out.replace(body, "")
     assert "BT_SEC_MARK();" not in rest.split("#define BT_SEC_MARK()")[1]
     assert "__device__ unsigned long long bt_sec[64];" in out
+
+
+def _nested_stub(depths, s=13, h=2, ch=20):
+    """A coupled scan's setup as nested_cost reads it: one H level per rank,
+    no shared k-mers, groups of the given depths (one row per level)."""
+    import types
+
+    o = h * (h + 1) // 2 + h + 1
+    n_levels = max(depths)
+    c = len(depths)
+    levels = [types.SimpleNamespace(
+        ll=torch.zeros((c, ch, s, o)), hap_valid=torch.ones((c, h)),
+        freqs=torch.zeros((c * ch, h)), ocur=torch.zeros((c, ch, s)),
+        tally=torch.zeros((c, ch, s, o), dtype=torch.int32),
+        retain=torch.zeros((c, o), dtype=torch.int8),
+        ploidy=torch.zeros((c, s), dtype=torch.int8), sh=None, mac=None)
+        for _ in range(n_levels)]
+    members = [(l, g) for g, d in enumerate(depths) for l in range(d)]
+    offsets = [0]
+    for d in depths:
+        offsets.append(offsets[-1] + d)
+    return types.SimpleNamespace(
+        levels=levels, pool=torch.zeros((1, ch, s), dtype=torch.int32),
+        groups=(torch.tensor(offsets, dtype=torch.int32),
+                torch.tensor(members, dtype=torch.int32)))
+
+
+@pytest.mark.parametrize("depths, chain_binds", [((65, 9, 9, 3), True),
+                                                 ((2,) * 4000, False)])
+def test_nested_bound_takes_the_deepest_chain(depths, chain_binds):
+    """nested_bound: the larger of the launch's roofline and the deepest
+    (group, chain)'s member steps at one SM's share of the float32 and
+    INT32 peaks."""
+    setup = _nested_stub(depths)
+    iters = 350
+    flt, ints = chip_smoke.step_ops(1, 13, 6, 2)
+    chain = iters * max(depths) * max(
+        flt / (chip_smoke.PEAK_OPS_S / chip_smoke.SMS),
+        ints / (chip_smoke.PEAK_INT_OPS_S / chip_smoke.SMS)) * 1e3
+    roof, roof_by = chip_smoke.bound(*chip_smoke.nested_cost(setup, iters))
+    ms, by, chain_ms = chip_smoke.nested_bound(setup, iters)
+    assert chain_ms == pytest.approx(chain)
+    assert ms == pytest.approx(max(roof, chain))
+    assert (chain > roof) == chain_binds
+    assert by == ("operations" if chain_binds else roof_by)
+    # the launch's operations: every member of every group and chain
+    _, ops, i_ops = chip_smoke.nested_cost(setup, iters)
+    assert ops == pytest.approx(20 * iters * sum(depths) * flt)
+    assert i_ops == pytest.approx(20 * iters * sum(depths) * ints)

@@ -401,3 +401,22 @@ def test_noise_chains_close(noise_case):
         [osp], [cfg], num_chains=2)
     np.testing.assert_allclose(tr_t.numpy(), np.asarray(tr_j), rtol=1e-4)
     np.testing.assert_allclose(rs_t.numpy(), np.asarray(rs_j), rtol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 128, 1000])
+def test_pack_bits_matches_its_unpack(k):
+    """The LL kernel's packed masks: bit j of int32 word i is k-mer 32 i +
+    j; the words past K are zero; unpack_member_bits inverts the packing."""
+    from bayestyper_tpu_torch.model.buckets import unpack_member_bits
+
+    w = torch.from_numpy(np.random.default_rng(k).random((3, 4, k)) < 0.3)
+    words = kernels.pack_bits(w)
+    assert words.dtype == torch.int32 and words.shape == (3, 4, (k + 31) // 32)
+    assert torch.equal(unpack_member_bits(words, k), w)
+    flat = unpack_member_bits(words, words.shape[-1] * 32)
+    assert not bool(flat[..., k:].any())
+    ref = np.zeros(words.shape, np.uint64)
+    for j in range(k):
+        ref[..., j // 32] |= (w[..., j].numpy().astype(np.uint64)
+                              << np.uint64(j % 32))
+    assert np.array_equal(words.numpy().view(np.uint32), ref.astype(np.uint32))

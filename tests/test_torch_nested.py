@@ -257,3 +257,86 @@ def test_tallies_and_mac_extras(case, one_iteration):
         assert same_entries >= 0.999 * entries, (same_entries, entries)
     else:
         assert agree >= 0.95 * pairs, (agree, pairs)
+
+
+def test_groups_order_deepest_first_and_stable():
+    """order_groups: sizes descending, equal sizes in the caller's order,
+    every group's members kept together and in order."""
+    from bayestyper_tpu_torch import kernels
+
+    sizes = [2, 3, 1, 3, 2, 5]
+    offsets = torch.tensor(np.cumsum([0] + sizes), dtype=torch.int32)
+    members = torch.arange(2 * sum(sizes), dtype=torch.int32).reshape(-1, 2)
+    off, mem = kernels.order_groups((offsets, members))
+    assert off.dtype == mem.dtype == torch.int32
+    got = [mem[off[g]:off[g + 1]].tolist() for g in range(len(sizes))]
+    order = [5, 1, 3, 0, 4, 2]
+    assert got == [members[offsets[g]:offsets[g + 1]].tolist() for g in order]
+
+
+def _port_setup(case):
+    _, args, kwargs = case
+    targs, tkw = _port_args(args, kwargs)
+    return tg.nested_setup(*targs, **tkw)
+
+
+def test_plain_scan_ignores_the_group_order(case):
+    """The plain coupled scan over the deepest-first order gives the
+    original order's tallies, frequencies, outcomes, MAC sums and pool."""
+    from bayestyper_tpu_torch import kernels
+
+    setup = _port_setup(case)
+    runs = []
+    for groups in (setup.groups, kernels.order_groups(setup.groups)):
+        st = dataclasses.replace(setup.clone(), groups=groups)
+        kernels.PLAIN["nested_sweep"](st.levels, st.pool, st.groups, 0,
+                                      st.num_iters, st.burn_in)
+        runs.append(st)
+    a, b = runs
+    assert torch.equal(a.pool, b.pool)
+    for la, lb in zip(a.levels, b.levels):
+        for f in ("tally", "freqs", "ocur"):
+            assert torch.equal(getattr(la, f), getattr(lb, f)), f
+        if la.mac is not None:
+            assert torch.equal(la.mac["acc"], lb.mac["acc"])
+
+
+def test_dense_pool_ranges_cover_every_slot_once(case):
+    """nested_tables: each group's shared rows map to a dense range of its
+    own, the ranges together hold every slot the groups' valid rows use
+    once, and each member's parent is an earlier member of its group."""
+    from bayestyper_tpu_torch import kernels
+
+    setup = _port_setup(case)
+    offsets, members = kernels.order_groups(setup.groups)
+    rows, qrows, pofs, gslot = kernels.nested_tables(setup.levels,
+                                                     (offsets, members))
+    assert rows.shape == (members.shape[0], 4)
+    assert torch.equal(rows[:, :2], members)
+    assert int(rows[:, 3].sum()) == qrows.shape[0]
+    used = set()
+    q_at = 0
+    for g in range(offsets.numel() - 1):
+        lo, hi = int(pofs[g]), int(pofs[g + 1])
+        mine = gslot[lo:hi].tolist()
+        assert len(set(mine)) == len(mine) and not used & set(mine)
+        used |= set(mine)
+        for i, m in enumerate(range(int(offsets[g]), int(offsets[g + 1]))):
+            l, r, parent, nq = rows[m].tolist()
+            assert -1 <= parent < i
+            lv = setup.levels[l]
+            if parent >= 0:
+                assert rows[int(offsets[g]) + parent, :2].tolist() == [
+                    int(lv.parent_level[r]), int(lv.parent_row[r])]
+            want = ([] if lv.sh is None else
+                    torch.nonzero(lv.sh["valid"][r])[:, 0].tolist())
+            assert qrows[q_at:q_at + nq, 0].tolist() == want
+            for q, local in qrows[q_at:q_at + nq].tolist():
+                assert 0 <= local < hi - lo
+                assert mine[local] == int(lv.sh["slot"][r, q])
+            q_at += nq
+    valid_slots = {int(lv.sh["slot"][r, q])
+                   for l, r in members.tolist()
+                   for lv in [setup.levels[l]] if lv.sh is not None
+                   for q in torch.nonzero(lv.sh["valid"][r])[:, 0].tolist()}
+    assert used == valid_slots
