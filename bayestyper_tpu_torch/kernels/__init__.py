@@ -122,11 +122,15 @@ def _launch_layout(name, *args):
 
 def _u32(t, device):
     """uint32 values held in int64 -> the same bits as int32 on `device`;
-    int32 words (key_words' output) pass through."""
-    if t.dtype == torch.int32:
-        return t.to(device).contiguous()
-    t = t.to(device) & 0xFFFFFFFF
-    return torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32).contiguous()
+    int32 words (key_words' output) pass through. The conversion runs where
+    t lies; host keys then go to a card in one copy from pinned memory that
+    does not wait for the stream's earlier work."""
+    if t.dtype != torch.int32:
+        t = t & 0xFFFFFFFF
+        t = torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.contiguous().pin_memory().to(device, non_blocking=True)
+    return t.to(device).contiguous()
 
 
 def _u64(t, device):

@@ -159,6 +159,9 @@ struct BtStatsArgs {
   float *gpp, *app, *gq;
 };
 
+// scratch: *scratch 4-byte words of device memory from
+// bt_bucket_stats_layout, which every shape needs (the bit words and the
+// top-T candidates; layout 1 also its rows)
 cudaError_t bt_bucket_stats(const BtStatsArgs& args, float* scratch,
                             cudaStream_t stream);
 int bt_bucket_stats_layout(const BtStatsArgs& args, int64_t* scratch);

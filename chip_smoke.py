@@ -2533,11 +2533,12 @@ def check_beyond_unit(book, dev, seed):
     card: ll_noise_terms at H256 x 30 samples (outcome tables past shared
     memory) and at H4096 x 2 samples (the largest class the compiler's beam
     forms at 30 samples x 32 sample haplotypes, 3,840 paths; its LL [S, O]
-    alone is 67 MB; its multiplicities read in place), and bucket_stats'
-    global-memory variant on an H64 chunk of 20,000 k-mer slots (K x W
-    member words of 160 KB, past shared memory with the rest of its
-    layout). LL within LL_RTOL / LL_ATOL, stats as check_stats. Returns the
-    lines."""
+    alone is 67 MB; its multiplicities read in place); bucket_stats on an
+    H64 chunk of 20,000 k-mer slots and at H4096 x 2 samples (8,394,753
+    outcomes, its top-8 selection merged over 8,199 partitions; the
+    global-memory variant); and subsample_masks on a chunk whose clusters
+    and slots include padding. LL within LL_RTOL / LL_ATOL, stats as
+    check_stats, masks bit-equal. Returns the lines."""
     from bayestyper_tpu_torch import kernels
     from bayestyper_tpu_torch.model import gibbs
     from bayestyper_tpu_torch.ops.distributions import (
@@ -2597,7 +2598,56 @@ def check_beyond_unit(book, dev, seed):
     with book.variants():
         lines.append(check_stats(book, f"H{h}/K{k}/C{c}", bucket, st_args,
                                  True))
+    del bucket, tally, w, st_args
+
+    # the largest class, at BEYOND_LL's second entry, two variants
+    h, s, c, k, ch = BEYOND_LL[1]
+    v, a_cap = 2, 3
+    bucket, tally = random_chunk(gen, dev, c, k, h, v, s, ch, a_cap)
+    osp = gibbs.outcome_tensors(h, dev)
+    w = torch.rand((c, ch, k), generator=gen, device=dev) < 0.5
+    st_args = (bucket.mult, bucket.inter_mult, bucket.counts, bucket.member,
+               bucket.hap_allele, bucket.num_alleles, bucket.ploidy, tally,
+               w, osp.oa32, osp.ob32, a_cap, 8, 0.99, 1.0,
+               torch.tensor([0.9, 0.5]), True)
+    with book.variants():
+        lines.append(check_stats(book, f"H{h}/K{k}/C{c} x{s} samples",
+                                 bucket, st_args, True))
+    del bucket, tally, w, st_args
+    torch.cuda.empty_cache()
+    lines.append(check_masks_padded(book, gen, dev))
     return lines
+
+
+def check_masks_padded(book, gen, dev):
+    """subsample_masks bit-equal to its plain version on a bulk-sized chunk
+    (4,096 clusters x 20 chains x 128 slots) whose last quarter of clusters
+    is padding (no valid slot, cluster id 0) and whose real clusters hold
+    0-128 k-mers; no padded slot kept."""
+    from bayestyper_tpu_torch import kernels
+    from bayestyper_tpu_torch.model import gibbs
+    from bayestyper_tpu_torch.ops import prng
+
+    c, ch, k = 4096, 20, 128
+    lens = torch.randint(0, k + 1, (c,), generator=gen, device=dev)
+    lens[3 * c // 4:] = 0
+    valid = torch.arange(k, device=dev)[None, :] < lens[:, None]
+    cid = torch.randint(0, 2 ** 31, (c,), generator=gen, device=dev)
+    cid[3 * c // 4:] = 0
+    base, fold = gibbs._chain_base(prng.prng_key(7), ch)
+    args = (base, fold, cid, valid, 0.1, gibbs._SUBSAMPLE_SALT)
+    got = kernels.subsample_masks(*args)
+    want = kernels.PLAIN["subsample_masks"](*args)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    stray = int((got & ~valid[:, None, :]).sum())
+    book.check(bad == 0 and stray == 0,
+               f"subsample_masks, padded chunk: {bad} entries differ, "
+               f"{stray} padded slots kept")
+    book.err("subsample_masks", min(bad, 1))
+    return (f"subsample_masks C{c}/K{k} x{ch} chains, a quarter of the "
+            f"clusters padded: {bad} of {got.numel()} differ, {stray} "
+            f"padded slots kept")
 
 
 def wide_phase(tmp, args, opts, ploidy, dev, name, smi):

@@ -1,6 +1,6 @@
-"""Time and fingerprint the Gibbs kernels of one tree of this repository on
-one CUDA card, to compare two trees (a parent commit and a change) on the
-same card.
+"""Time and fingerprint the genotype path's kernels of one tree of this
+repository on one CUDA card, to compare two trees (a parent commit and a
+change) on the same card.
 
     python3 kernel_ab.py --tree PATH --out RESULT.json [--seed 0] [--scale 2]
 
@@ -20,21 +20,33 @@ units it records, per size class of the main unit and of the wide unit
     sha256 of each, the largest |LL - plain| and the CUDA-event median of
     each form (also at chip_smoke.BEYOND_LL's H256 x 30 and H4096 x 2
     samples, on inputs drawn on the card from the seed);
+  * subsample_masks: the sha256 of the masks and their time, with the
+    path's host keys and with key words converted beforehand;
+  * bucket_stats from the scan's tally, packed and unpacked: the sha256 of
+    each form's outputs, of the integer outputs of both forms and of the
+    float outputs of both, and the time of each form;
 
 each with its CUDA-event median time (3 runs after a warm-up; noise_step
-and joint_step per launch of 10 back to back); the coupled unit's
-nested_sweep over all 350 iterations (sha256 of every level's tally,
-frequencies and MAC accumulator, and its time; the deepest group alone,
-and its time per chain step); and the sha256 of the VCFs
-that genotype_unit and genotype_unit_joint write for the main, coupled and
-wide units, with their phase seconds. Run parent, change, change, parent
-one after another on one card (each in its own process: the two trees'
-extensions share a name) and compare: equal fingerprints mean the same
-bits, and the two runs of one tree give the run-to-run spread of the
-times.
+and joint_step per launch of 10 back to back; masks and stats 5 runs); the
+coupled unit's nested_sweep over all 350 iterations (sha256 of every
+level's tally, frequencies and MAC accumulator, and its time; the deepest
+group alone, and its time per chain step); bucket_stats' rows for the
+coupled unit's first call with missing and mac_extra (recorded during its
+genotype_unit), for an H64 chunk of 20,000 k-mer slots, and for H256,
+H512, H2048 and H4096 x 2 samples on inputs
+drawn on the card (a tree whose time, extrapolated from H256 -> H512 as a
+power of O, passes BEYOND_STATS_LIMIT_S at H2048 or H4096 reports the case
+as "skipped (O² selection)" and does not run it); and the sha256 of the
+VCFs that genotype_unit and genotype_unit_joint write for the main,
+coupled and wide units, with their phase seconds. Run parent, change,
+change, parent one after another on one card (each in its own process:
+the two trees' extensions share a name) and compare: equal fingerprints
+mean the same bits, and the two runs of one tree give the run-to-run
+spread of the times.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -70,6 +82,7 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
     from bayestyper_tpu_torch.model import gibbs
     from bayestyper_tpu_torch.model.buckets import stack_buckets
     from bayestyper_tpu_torch.model.count_model import fit_genomic_nb
+    from bayestyper_tpu_torch.model.stats import FilterConfig
     from bayestyper_tpu_torch.ops import prng
     from bayestyper_tpu_torch.ops.distributions import (
         np_build_count_log_prob_tables, tables_from_numpy)
@@ -84,6 +97,9 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
                              samples, None)
     tables = tables_from_numpy(np_build_count_log_prob_tables(
         nb.p, nb.size, np.full(len(samples), 1e-3), 255), dev)
+    opts_filters = FilterConfig.from_model(
+        nb.mean, opts.min_genotype_posterior, opts.min_number_of_kmers,
+        opts.disable_observed_kmers)
     rows = []
     for key_cls in sorted(plan):
         pc = plan[key_cls]
@@ -154,14 +170,34 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
 
         new_tally = lambda: torch.zeros((n, s, o), dtype=torch.int32,  # noqa: E731
                                         device=dev)
+        swept = sweep([(0, iters)])
+        mask_args = (sub_base, fold, bucket.cluster_id, bucket.kmer_valid,
+                     cfg.kmer_subsampling_rate, gibbs._SUBSAMPLE_SALT)
+        # the same with the key words converted beforehand: the launch alone
+        mask_words = (kernels.key_words(sub_base, dev),) + mask_args[1:]
+        st_args = (bucket.mult, bucket.inter_mult, bucket.counts,
+                   bucket.member, bucket.hap_allele, bucket.num_alleles,
+                   bucket.ploidy, swept[1].reshape(c, ch, s, o), w, osp.oa32,
+                   osp.ob32, pc.a, o if o <= 64 else 8,
+                   opts_filters.min_genotype_posterior,
+                   opts_filters.min_number_of_kmers,
+                   torch.tensor(opts_filters.min_fraction_observed_kmers,
+                                dtype=torch.float32))
         row = {
             "class": tag, "pairs": n, "s": s, "o": o, "h": pc.h,
             "iters": iters, **ll_row,
-            "sweep_sha": sha(*sweep([(0, iters)])),
+            "sweep_sha": sha(*swept),
             "sweep_windows_sha": sha(*sweep([(0, 60), (60, iters)])),
             "noise_sha": sha(*nstep()),
             "joint_sha": sha(*jstep(new_tally())),
+            "masks_sha": sha(kernels.subsample_masks(*mask_args)),
+            "masks_ms": cs.cuda_ms(
+                lambda: kernels.subsample_masks(*mask_args), 5),
+            "masks_kernel_ms": cs.cuda_ms(
+                lambda: kernels.subsample_masks(*mask_words), 5),
+            **stats_fields(cs, st_args),
         }
+        del swept
         kernels.reset_launch_counts()
         sweep([(0, iters)])
         row["layouts"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
@@ -182,6 +218,12 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
                f"{row['llnoise_ms']:.4f} ms, |LL - plain| <= "
                f"{row['ll_err']:.3g}; ll {row['ll_sha'][:12]} noise "
                f"{row['llnoise_sha'][:12]}")
+        cs.log(f"  {tag}: subsample_masks {row['masks_ms']:.4f} ms (launch "
+               f"alone {row['masks_kernel_ms']:.4f} ms) "
+               f"{row['masks_sha'][:12]}; bucket_stats {row['stats_ms']:.4f} "
+               f"/ unpacked {row['stats_unpacked_ms']:.4f} ms, integer "
+               f"{row['stats_int_sha'][:12]} float "
+               f"{row['stats_float_sha'][:12]}")
         cs.log(f"  {tag} ({n} pairs): sweep {row['sweep_ms']:.3f} ms, "
                f"noise {row['noise_ms']:.4f} ms, joint {row['joint_ms']:.4f} "
                f"ms; sweep {row['sweep_sha'][:12]} windows "
@@ -191,6 +233,159 @@ def class_rows(cs, unit, samples, ploidy, opts, dev, label):
         del bucket, ll_n, llg_n, a_n, b_n
         torch.cuda.empty_cache()
     return rows
+
+
+def stats_fields(cs, st_args, **kw):
+    """bucket_stats on one chunk in the packed and the unpacked form: the
+    sha256 of the integer outputs of both forms (tallies, denominators, GT,
+    SAF), of the float outputs (packed NAK/FAK/MAC, unpacked GPP/APP/GQ/
+    NAK/FAK/MAC) and of all, and the CUDA-event median of each form."""
+    from bayestyper_tpu_torch import kernels
+
+    outs = [kernels.bucket_stats(*st_args, packed, **kw)
+            for packed in (True, False)]
+    flat = outs[0] + outs[1]
+    return {
+        "stats_sha": sha(*outs[0]), "stats_unpacked_sha": sha(*outs[1]),
+        "stats_int_sha": sha(*(x for x in flat
+                               if not x.dtype.is_floating_point)),
+        "stats_float_sha": sha(*(x for x in flat
+                                 if x.dtype.is_floating_point)),
+        "stats_ms": cs.cuda_ms(
+            lambda: kernels.bucket_stats(*st_args, True, **kw), 5),
+        "stats_unpacked_ms": cs.cuda_ms(
+            lambda: kernels.bucket_stats(*st_args, False, **kw), 5),
+    }
+
+
+# bucket_stats past the units' classes: (H, samples, clusters, k-mer slots,
+# chains) of chip_smoke.BEYOND_LL's second entry at H256-H4096, two
+# variants of three alleles; a later case runs where the tree's time at the
+# second, scaled by the power of O that the first two showed, stays under
+# BEYOND_STATS_LIMIT_S
+BEYOND_STATS_H = (256, 512, 2048, 4096)
+# seconds of one call (a row makes 14)
+BEYOND_STATS_LIMIT_S = 5.0
+
+
+def beyond_stats_rows(cs, dev, seed):
+    """bucket_stats at BEYOND_STATS_H on inputs drawn on the card from the
+    seed as chip_smoke.check_beyond_unit draws them; a case whose
+    extrapolated time passes the limit is reported as skipped."""
+    import math
+
+    import torch
+
+    from bayestyper_tpu_torch.model import gibbs
+
+    _, s, c, k, ch = cs.BEYOND_LL[1]
+    v, a_cap = 2, 3
+    rows, times = [], {}
+    for h in BEYOND_STATS_H:
+        o = h * (h + 1) // 2 + h + 1
+        row = {"class": f"H{h}/K{k}/C{c} x{s} samples", "o": o}
+        if len(times) == 2:
+            (o1, t1), (o2, t2) = sorted(times.items())
+            e = math.log(t2 / t1) / math.log(o2 / o1)
+            row["exponent"] = e
+            row["extrapolated_ms"] = t2 * (o / o2) ** e
+            if row["extrapolated_ms"] > 1e3 * BEYOND_STATS_LIMIT_S:
+                row["skipped"] = "skipped (O² selection)"
+                cs.log(f"  bucket_stats {row['class']}: skipped (O² "
+                       f"selection): {row['extrapolated_ms']:.0f} ms "
+                       f"extrapolated as O^{e:.2f}")
+                rows.append(row)
+                continue
+        gen = torch.Generator(device=dev).manual_seed(seed + h)
+        bucket, tally = cs.random_chunk(gen, dev, c, k, h, v, s, ch, a_cap)
+        osp = gibbs.outcome_tensors(h, dev)
+        w = torch.rand((c, ch, k), generator=gen, device=dev) < 0.5
+        st_args = (bucket.mult, bucket.inter_mult, bucket.counts,
+                   bucket.member, bucket.hap_allele, bucket.num_alleles,
+                   bucket.ploidy, tally, w, osp.oa32, osp.ob32, a_cap, 8,
+                   0.99, 1.0, torch.tensor([0.9, 0.5]))
+        row.update(stats_fields(cs, st_args))
+        if len(times) < 2:
+            times[o] = row["stats_ms"]
+        cs.log(f"  bucket_stats {row['class']}: {row['stats_ms']:.3f} / "
+               f"unpacked {row['stats_unpacked_ms']:.3f} ms, integer "
+               f"{row['stats_int_sha'][:12]} float "
+               f"{row['stats_float_sha'][:12]}")
+        rows.append(row)
+        del bucket, tally, w, st_args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def wide_k_stats_row(cs, dev, seed):
+    """bucket_stats on chip_smoke.check_beyond_unit's H64 chunk of 20,000
+    k-mer slots (2 clusters, 2 variants, 3 samples, 3 chains), drawn on
+    the card from the seed."""
+    import torch
+
+    from bayestyper_tpu_torch.model import gibbs
+
+    c, k, h, v, s, ch, a_cap = 2, 20000, 64, 2, 3, 3, 4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bucket, tally = cs.random_chunk(gen, dev, c, k, h, v, s, ch, a_cap)
+    osp = gibbs.outcome_tensors(h, dev)
+    w = torch.rand((c, ch, k), generator=gen, device=dev) < 0.5
+    st_args = (bucket.mult, bucket.inter_mult, bucket.counts, bucket.member,
+               bucket.hap_allele, bucket.num_alleles, bucket.ploidy, tally,
+               w, osp.oa32, osp.ob32, a_cap, 8, 0.99, 1.0,
+               torch.tensor([0.9, 0.5, 0.2]))
+    row = {"class": f"H{h}/K{k}/C{c} x{s} samples",
+           **stats_fields(cs, st_args)}
+    cs.log(f"  bucket_stats {row['class']}: {row['stats_ms']:.3f} / unpacked "
+           f"{row['stats_unpacked_ms']:.3f} ms, integer "
+           f"{row['stats_int_sha'][:12]} float {row['stats_float_sha'][:12]}")
+    return row
+
+
+@contextlib.contextmanager
+def coupled_stats_call(calls):
+    """Record into calls a copy of the arguments of the first
+    kernels.bucket_stats call made with the coupled path's missing and
+    mac_extra inputs (all but the form; missing and mac_extra by name)."""
+    import torch
+
+    from bayestyper_tpu_torch import kernels
+
+    real = kernels.bucket_stats
+    copy = lambda x: x.clone() if torch.is_tensor(x) else (  # noqa: E731
+        tuple(map(copy, x)) if isinstance(x, tuple) else x)
+
+    def recording(*args, **kw):
+        extra = dict(zip(("missing", "mac_extra"), args[17:]), **kw)
+        if not calls and all(extra.get(nm) is not None
+                              for nm in ("missing", "mac_extra")):
+            calls.append((copy(args[:16]),
+                          {nm: copy(x) for nm, x in extra.items()}))
+        return real(*args, **kw)
+
+    kernels.bucket_stats = recording
+    try:
+        yield calls
+    finally:
+        kernels.bucket_stats = real
+
+
+def coupled_stats_row(cs, calls):
+    """stats_fields of the coupled unit's recorded bucket_stats call (both
+    forms, whichever the path ran)."""
+    if not calls:
+        raise RuntimeError("the coupled unit made no bucket_stats call with "
+                           "missing and mac_extra")
+    args, kw = calls[0]
+    o = args[7].shape[3]
+    row = {"class": f"coupled H{args[0].shape[2]}/K{args[0].shape[1]}/"
+                    f"C{args[0].shape[0]} (missing, mac_extra)", "o": o,
+           **stats_fields(cs, args, **kw)}
+    cs.log(f"  bucket_stats {row['class']}: {row['stats_ms']:.4f} / unpacked "
+           f"{row['stats_unpacked_ms']:.4f} ms, integer "
+           f"{row['stats_int_sha'][:12]} float "
+           f"{row['stats_float_sha'][:12]}")
+    return row
 
 
 def ll_rows(cs, ll_args, ll_out, noise_out):
@@ -386,8 +581,11 @@ def main():
         os.path.join(tmp, "coupled"), args.seed, args.scale)
     unit = cluster(genome, samples, vcf_path)
     result["nested"] = nested_row(cs, unit, samples, ploidy, opts, dev)
-    result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy, opts,
-                                  tmp, "coupled"))
+    with coupled_stats_call([]) as calls:
+        result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy,
+                                      opts, tmp, "coupled"))
+    result["coupled_stats"] = coupled_stats_row(cs, calls)
+    del calls
 
     os.makedirs(os.path.join(tmp, "wide"))
     genome, vcf_path, _, _, samples, _ = cs.simulate_wide(
@@ -396,6 +594,8 @@ def main():
     result["classes"] += class_rows(cs, unit, samples, ploidy, opts, dev,
                                     "wide")
     result["beyond_ll"] = beyond_ll_rows(cs, dev, args.seed)
+    result["wide_k_stats"] = wide_k_stats_row(cs, dev, args.seed)
+    result["beyond_stats"] = beyond_stats_rows(cs, dev, args.seed)
     result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy, opts,
                                   tmp, "wide"))
     with open(args.out, "w") as f:

@@ -75,6 +75,69 @@ def test_kernel_ab_fingerprints_the_bytes():
     assert kernel_ab.sha(a, a) != kernel_ab.sha(a)
 
 
+def test_kernel_ab_records_the_coupled_stats_call(monkeypatch):
+    """coupled_stats_call keeps a copy of the first call's arguments made
+    with missing and mac_extra, given by position as the engine gives
+    them, and lets every call through."""
+    from bayestyper_tpu_torch import kernels
+
+    seen = []
+    monkeypatch.setattr(kernels, "bucket_stats",
+                        lambda *a, **kw: seen.append((a, kw)) or len(seen))
+    t = torch.zeros(3)
+    head = (t,) * 16
+    with kernel_ab.coupled_stats_call([]) as calls:
+        assert kernels.bucket_stats(*head, True) == 1
+        assert kernels.bucket_stats(*head, False, (t, t, t), t) == 2
+        kernels.bucket_stats(*head, False, missing=(t,), mac_extra=t)
+    assert kernels.bucket_stats is not None and len(seen) == 3
+    assert len(calls) == 1
+    args, kw = calls[0]
+    assert len(args) == 16 and set(kw) == {"missing", "mac_extra"}
+    t += 1
+    assert float(args[0].sum()) == 0.0 and float(kw["mac_extra"].sum()) == 0
+
+
+@pytest.mark.parametrize("power, runs", [(2.0, (256, 512)),
+                                         (1.0, (256, 512, 2048, 4096))])
+def test_kernel_ab_skips_stats_cases_past_the_limit(monkeypatch, power,
+                                                     runs):
+    """beyond_stats_rows extrapolates the later cases from the first two
+    as a power of O and runs only those under the limit: a kernel whose
+    time grows as O^2 from 50 ms at H512 skips H2048 and H4096, one that
+    grows as O runs them."""
+    import types
+
+    ran = []
+
+    def fields(cs, st_args):
+        o = st_args[7].shape[-1]
+        ran.append(o)
+        return {"stats_ms": 50.0 * (o / 131841) ** power,
+                "stats_unpacked_ms": 0.0, "stats_int_sha": "0" * 12,
+                "stats_float_sha": "0" * 12}
+
+    monkeypatch.setattr(kernel_ab, "stats_fields", fields)
+
+    def chunk(gen, dev, c, k, h, v, s, ch, a_cap):
+        o = h * (h + 1) // 2 + h + 1
+        return types.SimpleNamespace(**dict.fromkeys(
+            ("mult", "inter_mult", "counts", "member", "hap_allele",
+             "num_alleles", "ploidy"))), torch.zeros((c, ch, s, o))
+
+    cs = types.SimpleNamespace(BEYOND_LL=chip_smoke.BEYOND_LL,
+                               random_chunk=chunk, log=lambda msg: None)
+    monkeypatch.setattr("bayestyper_tpu_torch.model.gibbs.outcome_tensors",
+                        lambda h, dev: types.SimpleNamespace(oa32=None,
+                                                             ob32=None))
+    rows = kernel_ab.beyond_stats_rows(cs, torch.device("cpu"), 0)
+    assert ran == [h * (h + 1) // 2 + h + 1 for h in runs]
+    skipped = [r["class"] for r in rows if "skipped" in r]
+    assert len(skipped) == 4 - len(runs)
+    assert all(r["skipped"] == "skipped (O² selection)" for r in rows
+               if "skipped" in r)
+
+
 def test_step_sections_marks_every_barrier_of_the_step():
     import os
 

@@ -136,6 +136,12 @@ def test_bucket_stats_matches_plain(cuda, h, t_top, coupled, packed):
                                **{n: on_dev(cuda, x) for n, x in extra.items()})
     want = kernels.PLAIN["bucket_stats"](
         *args(cuda), *tail, **{n: on_dev(cuda, x) for n, x in extra.items()})
+    _assert_stats_close(got, want)
+
+
+def _assert_stats_close(got, want):
+    """bucket_stats' outputs against its plain version's: integer fields
+    equal, float fields within rtol 1e-5 (float16 ones 1e-3), atol 1e-5."""
     torch.cuda.synchronize()
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and g.shape == w.shape, i
@@ -145,6 +151,57 @@ def test_bucket_stats_matches_plain(cuda, h, t_top, coupled, packed):
                                        atol=1e-5)
         else:
             assert torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("h, c, k, v", [(16, 5, 200, 3), (64, 1, 24, 4),
+                                        (128, 1, 40, 2)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_bucket_stats_top_t_matches_plain(cuda, h, c, k, v, ties):
+    """The top-8 MAC selection past O = 64 against the plain version: an
+    H16 chunk of several variants per cluster, and single clusters of
+    O = 2,145 and 8,385 outcomes (their selection merges several
+    partitions of outcomes); with ties, every (cluster, sample) holds many
+    outcomes of equal total tally across the 8th and 9th places, so the
+    order (ties to the lower index) decides the selection."""
+    rng = np.random.default_rng(h + ties)
+    s, ch, a_cap = 4, 3, 4
+    chunk = _random_chunk(rng, c, k, h, v, s, ch, a_cap)
+    if ties:
+        o = chunk["oa"].shape[0]
+        tally = np.zeros((c, ch, s, o), np.int32)
+        # one chain's unit draws over 40 outcomes and 3 double ones: totals
+        # 2 at three outcomes, 1 at the rest
+        for ci in range(c):
+            for si in range(s):
+                picks = rng.choice(o, 40, replace=False)
+                tally[ci, 0, si, picks] = 1
+                tally[ci, 1, si, picks[:3]] = 1
+        chunk["tally"] = torch.from_numpy(tally)
+    args = [x.to(cuda) for x in chunk.values()]
+    tail = (a_cap, 8, 0.99, 1.0, torch.tensor([0.9, 0.5, 0.2, 0.0]), True)
+    _assert_stats_close(kernels.bucket_stats(*args, *tail),
+                        kernels.PLAIN["bucket_stats"](*args, *tail))
+
+
+def test_subsample_masks_matches_plain(cuda):
+    """The masks bit-equal to the plain version on chunks whose clusters
+    and slots include padding (padded clusters hold no valid slot), at K
+    classes that are and are not multiples of four slots."""
+    rng = np.random.default_rng(5)
+    base, fold = tg._chain_base(prng.prng_key(23), 20)
+    for c, k in ((37, 128), (5, 1023), (3, 1), (2, 20000)):
+        lens = rng.integers(0, k + 1, c)
+        lens[-2:] = 0                                     # padded clusters
+        valid = np.arange(k)[None, :] < lens[:, None]
+        cid = rng.integers(0, 2 ** 31, c)
+        cid[-2:] = 0
+        args = (base, fold, torch.from_numpy(cid).to(cuda),
+                torch.from_numpy(valid).to(cuda), 0.1, tg._SUBSAMPLE_SALT)
+        got = kernels.subsample_masks(*args)
+        want = kernels.PLAIN["subsample_masks"](*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (c, k)
+        assert not bool(got[-2:].any())
 
 
 def test_kmer_cap_matches_plain(cuda):
@@ -600,30 +657,25 @@ def test_kmer_cap_global_matches_plain(cuda):
     assert int(got.sum()) < int(chunk["w"].sum())
 
 
-@pytest.mark.parametrize("h, k", [(64, 20000), (128, 512)])
+@pytest.mark.parametrize("h, k, is_global", [(64, 20000, False),
+                                              (128, 512, True)])
 @pytest.mark.parametrize("packed", [True, False])
-def test_bucket_stats_global_matches_plain(cuda, packed, h, k):
-    """Stats of an H64 chunk of 20,000 k-mer slots (K x W member words of
-    160 KB, read in place) and of an H128 chunk (its 7·O outcome words
-    past shared memory, in device memory) against the plain version, at
-    the bars of test_bucket_stats_matches_plain."""
+def test_bucket_stats_global_matches_plain(cuda, packed, h, k, is_global):
+    """Stats of an H64 chunk of 20,000 k-mer slots (its k-mer sets read as
+    bit words from device memory, so the shared layout) and of an H128
+    chunk (its 7·O outcome words past shared memory, in device memory: the
+    global-memory variant) against the plain version, at the bars of
+    test_bucket_stats_matches_plain."""
     rng = np.random.default_rng(8)
     c, v, s, ch, a_cap = 2, 2, 3, 3, 4
     chunk = _random_chunk(rng, c, k, h, v, s, ch, a_cap)
     args = [x.to(cuda) for x in chunk.values()]
     tail = (a_cap, 8, 0.99, 1.0, torch.tensor([0.9, 0.5, 0.2]), packed)
-    got = _launched("bucket_stats",
-                    lambda: kernels.bucket_stats(*args, *tail))
-    want = kernels.PLAIN["bucket_stats"](*args, *tail)
-    torch.cuda.synchronize()
-    for i, (g, w) in enumerate(zip(got, want)):
-        assert g.dtype == w.dtype and g.shape == w.shape, i
-        if g.dtype.is_floating_point:
-            torch.testing.assert_close(g.float(), w.float(), rtol=1e-3 if
-                                       g.dtype == torch.float16 else 1e-5,
-                                       atol=1e-5)
-        else:
-            assert torch.equal(g, w), i
+    kernels.reset_launch_counts()
+    got = kernels.bucket_stats(*args, *tail)
+    assert kernels.LAUNCHES[kernels.GLOBAL["bucket_stats"]] == is_global
+    assert kernels.LAUNCHES["bucket_stats"] == (not is_global)
+    _assert_stats_close(got, kernels.PLAIN["bucket_stats"](*args, *tail))
 
 
 @pytest.mark.parametrize("h, s, k", [(2, 13, 128), (16, 30, 2048),

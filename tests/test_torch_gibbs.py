@@ -162,6 +162,33 @@ def test_subsample_masks_bit_equal(case, rate):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("rate", RATE_CASES)
+def test_subsample_masks_padding_invariant(rate):
+    """The same five clusters bucketed at two K classes, with padded
+    clusters behind them: the port's masks bit-equal to the JAX package's
+    at each, equal on the clusters' real slots across the two classes, and
+    empty on padded slots and clusters (the kernel hashes no invalid
+    slot)."""
+    rng = np.random.default_rng(2)
+    cls = [_multi_hap_cluster(rng, h, 40 + 9 * i)
+           for i, h in enumerate((2, 3, 5, 6, 4))]
+    k_real = max(len(c["mult"]) for c in cls)
+    masks = []
+    for k_cap in (k_real + 3, 4 * k_real):
+        host = jbuckets.build_bucket(cls, (8, k_cap, 8, 2), S)
+        jb, tb = _pair(host)
+        jk, tk = _keys(77)
+        want = jg.subsample_masks(jk, jb.kmer_valid, 6, rate,
+                                  cluster_ids=jb.cluster_id)
+        got = tg.subsample_masks(tk, tb.kmer_valid, 6, rate,
+                                 cluster_ids=tb.cluster_id)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert not got[len(cls):].any()
+        assert not (got & ~tb.kmer_valid[:, None, :]).any()
+        masks.append(got[:len(cls), :, :k_real + 3])
+    np.testing.assert_array_equal(masks[0].numpy(), masks[1].numpy())
+
+
 def test_kmer_cap_bit_equal(case):
     _, host, _ = case
     jb, tb = _pair(host)

@@ -23,7 +23,7 @@ from bayestyper_tpu.model import gibbs as jg
 from bayestyper_tpu.model import stats as jstats
 from bayestyper_tpu_torch.model import buckets as tbuckets
 from bayestyper_tpu_torch.model import stats as tstats
-from tests.test_torch_gibbs import BUCKETS
+from tests.test_torch_gibbs import BUCKETS, _synthetic_bucket
 
 CH = 3
 F16_CLOSE = dict(rtol=2e-3, atol=2e-3)
@@ -195,6 +195,68 @@ def test_unpacked_stacked_stats_match():
         jnp.asarray(w), filters, allele_capacity=4, mac_top_t=8)
     got = tstats.collect_bucket_stats_stacked(
         tbuckets.stack_buckets([tb, tb]), osp, torch.from_numpy(tallies),
+        torch.from_numpy(w), _port_filters(filters), allele_capacity=4,
+        mac_top_t=8)
+    _assert_unpacked_close(got, want)
+
+
+def _tied_tallies(host):
+    """[C, ch, S, O] tallies over the H16 outcome space whose totals over
+    chains tie across the 8th and 9th places of every (cluster, sample):
+    5 at five ploidy-valid outcomes, 3 at the next twelve (spread over the
+    chains, so the per-chain tallies differ), 0 elsewhere."""
+    c = host.mult.shape[0]
+    s = host.counts.shape[2]
+    osp = jg.make_outcome_space(host.mult.shape[2])
+    out = np.zeros((c, CH, s, osp.num_outcomes), np.int32)
+    rng = np.random.default_rng(4)
+    for ci in range(c):
+        for si in range(s):
+            valid = np.flatnonzero(osp.ploidy_mask[host.ploidy[ci, si]])
+            if len(valid) < 17:
+                continue
+            pick = rng.permutation(valid)[:17]
+            out[ci, :, si, pick[:5]] = (2, 2, 1)
+            out[ci, :, si, pick[5:]] = 1
+    return out
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_top8_ties_match(packed):
+    """MAC over the top 8 of O = 153 outcomes (H16, where the engine
+    truncates) when the 8th place is a tie of twelve outcomes: the port's
+    selection takes the tied outcomes in lax.top_k's order (ties to the
+    lower index), as the JAX package does."""
+    host, _ = _synthetic_bucket(16, 9)
+    c, k, h = host.mult.shape
+    s = host.counts.shape[2]
+    osp = jg.make_outcome_space(h)
+    assert osp.num_outcomes > 64
+    tally = _tied_tallies(host)
+    top = -np.sort(-tally.sum(axis=1), axis=-1)
+    assert (top[..., 7] == top[..., 8]).any()
+    rng = np.random.default_rng(17)
+    w = (rng.random((c, CH, k)) < 0.7) & host.kmer_valid[:, None, :]
+    filters = _filters(s)
+    if packed:
+        jb = host.device_arrays()
+        tb = tbuckets.bucket_from_numpy(host, "cpu")
+        want = jstats.collect_bucket_stats_packed_stacked(
+            jbuckets.stack_buckets([jb]), osp, jnp.asarray(tally[None]),
+            jnp.asarray(w[None]), filters, allele_capacity=4, mac_top_t=8)
+        got = tstats.collect_bucket_stats_packed_stacked(
+            tbuckets.stack_buckets([tb]), osp, torch.from_numpy(tally[None]),
+            torch.from_numpy(w[None]), _port_filters(filters),
+            allele_capacity=4, mac_top_t=8)
+        np.testing.assert_allclose(
+            got.mac.numpy().astype(np.float32),
+            np.asarray(want.mac).astype(np.float32), **F16_CLOSE)
+        return
+    want = jstats.collect_bucket_stats(
+        host.device_arrays(), osp, jnp.asarray(tally), jnp.asarray(w),
+        filters, allele_capacity=4, mac_top_t=8)
+    got = tstats.collect_bucket_stats(
+        tbuckets.bucket_from_numpy(host, "cpu"), osp, torch.from_numpy(tally),
         torch.from_numpy(w), _port_filters(filters), allele_capacity=4,
         mac_top_t=8)
     _assert_unpacked_close(got, want)
