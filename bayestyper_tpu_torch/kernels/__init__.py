@@ -1,6 +1,8 @@
 """The hand-written Hopper kernels of the genotype path, of the device k-mer
 lookups (the lane table and the bloom query) and of the prior gamma draw,
-and their wrappers.
+and their wrappers. The rate update is two kernels: its key-only draws,
+once per scan (noise_rates_draws), and the update, once per iteration
+(noise_rates).
 
 Each wrapper takes tensors in the JAX package's layouts. For tensors on the
 CPU it runs the kernel's plain PyTorch version (kernels/reference.py); for
@@ -37,8 +39,8 @@ from . import reference
 
 KERNELS = ("subsample_masks", "ll_noise_terms", "gibbs_sweep", "noise_step",
            "kmer_cap", "bucket_stats", "nested_sweep", "joint_step",
-           "noise_rates", "unpack_bucket", "lane_lookup", "bloom_query",
-           "gamma_draw")
+           "noise_rates", "noise_rates_draws", "unpack_bucket", "lane_lookup",
+           "bloom_query", "gamma_draw")
 
 # the jitted JAX program each kernel replaces (no Pallas kernel exists)
 REPLACES = {
@@ -51,6 +53,7 @@ REPLACES = {
     "nested_sweep": "bayestyper_tpu/model/gibbs.py:980",
     "joint_step": "bayestyper_tpu/model/gibbs.py:2184",
     "noise_rates": "bayestyper_tpu/model/gibbs.py:2127",
+    "noise_rates_draws": "bayestyper_tpu/model/gibbs.py:2127",
     "unpack_bucket": "bayestyper_tpu/engine.py:1439",
     "lane_lookup": "bayestyper_tpu/parallel/sharded_table.py:118",
     "bloom_query": "bayestyper_tpu/ops/bloom.py:133",
@@ -317,18 +320,66 @@ def _plain_noise_rates(k_noise, count_sum, num_obs, rates, log_r, trace, t,
                           rates, log_r, trace, t, prior_shape, prior_scale)
 
 
-def noise_rates(k_noise, count_sum, num_obs, rates, log_r, trace, t,
-                prior_shape, prior_scale):
+@dataclasses.dataclass
+class RateDraws:
+    """What the rate updates of iterations t0 .. t0 + n - 1 draw from their
+    keys alone (noise_rate_draws), on one device."""
+
+    keys: torch.Tensor   # [n, ch, 3, 2] key words: k_boost, k_norm, k_unif
+    draws: torch.Tensor  # [n, 3, ch, S] f32: normal, uniform, boost uniform
+    t0: int
+
+
+def _plain_noise_rate_draws(k_noise, trace, t0=0, n=None):
+    """noise_rate_draws' plain version, with the wrapper's signature."""
+    n = trace.shape[1] - t0 if n is None else n
+    return RateDraws(*reference.noise_rate_draws(
+        _u64(k_noise, trace.device), t0, n, trace.shape[2]), int(t0))
+
+
+def noise_rate_draws(k_noise, trace, t0=0, n=None):
+    """The key-only values of the rate updates of iterations t0 .. t0 + n -
+    1 (by default to the end of trace [ch, T, S]) of the chains' noise keys
+    k_noise [ch, 2]: each (iteration, chain)'s three gamma keys and each
+    element's first-round normal and uniform and boost uniform, in one
+    launch before a scan (RateDraws, on the trace's device)."""
+    if not trace.is_cuda:
+        return _plain_noise_rate_draws(k_noise, trace, t0, n)
+    n = trace.shape[1] - t0 if n is None else n
+    keys, draws = _launch("noise_rates_draws", _u32(k_noise, trace.device),
+                          int(t0), int(n), int(trace.shape[2]))
+    return RateDraws(keys, draws, int(t0))
+
+
+def noise_rate_update(draws, count_sum, num_obs, rates, log_r, trace, t,
+                      prior_shape, prior_scale):
     """The gamma rate update closing iteration t of the noise or joint
-    chains, in place: rates/log_r [ch, S] f32 from the int32 statistics
-    count_sum/num_obs [ch, S] (then zeroed) and the chains' noise keys
-    k_noise [ch, 2]; trace [ch, T, S] gets column t."""
+    chains, in place, from t's slice of draws (noise_rate_draws): rates/
+    log_r [ch, S] f32 from the int32 statistics count_sum/num_obs [ch, S]
+    (then zeroed); trace [ch, T, S] gets column t. Counts as a noise_rates
+    launch."""
+    i = t - draws.t0
+    if not 0 <= i < draws.keys.shape[0]:
+        raise ValueError(f"iteration {t} outside the draws of iterations "
+                         f"{draws.t0}..{draws.t0 + draws.keys.shape[0] - 1}")
     if not rates.is_cuda:
-        return _plain_noise_rates(k_noise, count_sum, num_obs, rates, log_r,
-                                  trace, t, prior_shape, prior_scale)
-    _launch("noise_rates", _u32(k_noise, rates.device), count_sum, num_obs,
+        return reference.noise_rate_update(
+            draws.keys[i], draws.draws[i], count_sum, num_obs, rates, log_r,
+            trace, t, prior_shape, prior_scale)
+    _launch("noise_rates", draws.keys, draws.draws, i, count_sum, num_obs,
             rates, log_r, trace, int(t), float(prior_shape),
             float(prior_scale))
+
+
+def noise_rates(k_noise, count_sum, num_obs, rates, log_r, trace, t,
+                prior_shape, prior_scale):
+    """The rate update of iteration t alone (noise_rate_update on
+    noise_rate_draws of that iteration): rates/log_r [ch, S] f32 from the
+    int32 statistics count_sum/num_obs [ch, S] (then zeroed) and the
+    chains' noise keys k_noise [ch, 2]; trace [ch, T, S] gets column t."""
+    noise_rate_update(noise_rate_draws(k_noise, trace, t, 1), count_sum,
+                      num_obs, rates, log_r, trace, t, prior_shape,
+                      prior_scale)
 
 
 def _plain_gamma_draw(keys, alpha):
@@ -600,6 +651,7 @@ PLAIN = {
     "nested_sweep": reference.nested_sweep,
     "joint_step": _plain_joint_step,
     "noise_rates": _plain_noise_rates,
+    "noise_rates_draws": _plain_noise_rate_draws,
     "unpack_bucket": reference.unpack_bucket,
     "lane_lookup": reference.lane_lookup,
     "bloom_query": reference.bloom_query,

@@ -296,27 +296,56 @@ std::tuple<at::Tensor, int64_t> joint_step(
   return {osel, layout};
 }
 
-void noise_rates(const at::Tensor& k_noise, at::Tensor count_sum,
-                 at::Tensor num_obs, at::Tensor rates, at::Tensor log_r,
-                 at::Tensor trace, int64_t t, double prior_shape,
-                 double prior_scale) {
+std::vector<at::Tensor> noise_rates_draws(const at::Tensor& k_noise,
+                                          int64_t t0, int64_t n_t,
+                                          int64_t s) {
+  const auto dev = k_noise.device();
+  TORCH_CHECK(dev.is_cuda() && k_noise.dim() == 2,
+              "k_noise [ch, 2]: a CUDA tensor");
+  const int64_t ch = k_noise.size(0);
+  TORCH_CHECK(t0 >= 0 && n_t >= 0 && s >= 0 && t0 + n_t <= INT32_MAX,
+              "iterations ", t0, " + ", n_t, " of ", s, " samples");
+  expect(k_noise, "k_noise", at::kInt, {ch, 2}, dev);
+  const c10::cuda::CUDAGuard guard(dev);
+  auto keys = at::empty({n_t, ch, 3, 2}, k_noise.options());
+  auto draws = at::empty({n_t, 3, ch, s}, k_noise.options().dtype(at::kFloat));
+  launched(bt_noise_rates_draws(u32(k_noise),
+                                reinterpret_cast<unsigned*>(
+                                    keys.data_ptr<int32_t>()),
+                                draws.data_ptr<float>(), (int)ch, (int)s,
+                                (int)t0, (int)n_t, stream()),
+           "noise_rates_draws");
+  return {keys, draws};
+}
+
+void noise_rates(const at::Tensor& keys, const at::Tensor& draws,
+                 int64_t slot, at::Tensor count_sum, at::Tensor num_obs,
+                 at::Tensor rates, at::Tensor log_r, at::Tensor trace,
+                 int64_t t, double prior_shape, double prior_scale) {
   const auto dev = rates.device();
-  TORCH_CHECK(dev.is_cuda() && rates.dim() == 2 && trace.dim() == 3,
-              "rates [ch, S], trace [ch, T, S]: CUDA tensors");
+  TORCH_CHECK(dev.is_cuda() && rates.dim() == 2 && trace.dim() == 3 &&
+                  keys.dim() == 4,
+              "rates [ch, S], trace [ch, T, S], keys [n_t, ch, 3, 2]: CUDA "
+              "tensors");
   const int64_t ch = rates.size(0), s = rates.size(1), n_t = trace.size(1);
+  const int64_t n_draws = keys.size(0);
   TORCH_CHECK(0 <= t && t < n_t, "iteration ", t, " outside the trace's ",
               n_t);
-  expect(k_noise, "k_noise", at::kInt, {ch, 2}, dev);
+  TORCH_CHECK(0 <= slot && slot < n_draws, "draw slice ", slot,
+              " outside the draws' ", n_draws);
+  expect(keys, "keys", at::kInt, {n_draws, ch, 3, 2}, dev);
+  expect(draws, "draws", at::kFloat, {n_draws, 3, ch, s}, dev);
   expect(count_sum, "count_sum", at::kInt, {ch, s}, dev);
   expect(num_obs, "num_obs", at::kInt, {ch, s}, dev);
   expect(rates, "rates", at::kFloat, {ch, s}, dev);
   expect(log_r, "log_r", at::kFloat, {ch, s}, dev);
   expect(trace, "trace", at::kFloat, {ch, n_t, s}, dev);
   const c10::cuda::CUDAGuard guard(dev);
-  launched(bt_noise_rates(u32(k_noise), count_sum.data_ptr<int32_t>(),
+  launched(bt_noise_rates(u32(keys), draws.data_ptr<float>(),
+                          count_sum.data_ptr<int32_t>(),
                           num_obs.data_ptr<int32_t>(), rates.data_ptr<float>(),
                           log_r.data_ptr<float>(), trace.data_ptr<float>(),
-                          (int)ch, (int)s, (int)n_t, (int)t,
+                          (int)ch, (int)s, (int)n_t, (int)t, (int)slot,
                           (float)prior_shape, (float)prior_scale, stream()),
            "noise_rates");
 }
@@ -445,8 +474,10 @@ std::tuple<at::Tensor, int64_t> kmer_cap(
   const c10::cuda::CUDAGuard guard(dev);
   auto out = at::empty_like(w);
   int64_t per_pair = 0;
-  const int layout = bt_kmer_cap_layout((int)k, (int)v, (int)num_haplotypes,
-                                        &per_pair);
+  const int layout = bt_kmer_cap_layout((int)k, (int)v, (int)words,
+                                        (int)num_haplotypes, &per_pair);
+  TORCH_CHECK(layout >= 0, "kmer_cap: no layout fits K = ", k, " in ",
+              bt_smem_optin(), " bytes of shared memory");
   at::Tensor scratch;
   if (per_pair > 0)
     scratch = at::empty({c * ch, per_pair}, w.options().dtype(at::kByte));
@@ -752,6 +783,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gibbs_sweep", &gibbs_sweep);
   m.def("noise_step", &noise_step);
   m.def("joint_step", &joint_step);
+  m.def("noise_rates_draws", &noise_rates_draws);
   m.def("noise_rates", &noise_rates);
   m.def("gamma_draw", &gamma_draw);
   m.def("unpack_bucket", &unpack_bucket);

@@ -47,7 +47,7 @@ inline int bt_sm_count() {
 // nested_sweep, bytes per pair for kmer_cap). The launchers take the
 // scratch and compute the same layout again.
 int bt_gibbs_layout(int S, int O, int H, bool ll_written, int64_t* scratch);
-int bt_kmer_cap_layout(int K, int V, int H, int64_t* scratch);
+int bt_kmer_cap_layout(int K, int V, int W, int H, int64_t* scratch);
 // 0 where a tile of 32 k-mers fits the card's opt-in shared memory, else -1
 int bt_ll_noise_terms_layout(int64_t C, int K, int H, int S, int O, int ch,
                              int noise);
@@ -99,11 +99,20 @@ cudaError_t bt_joint_step(const float* llg, const float* a, const float* b,
                           int ch, int S, int O, int H, int t, int burn_in,
                           cudaStream_t stream);
 
-cudaError_t bt_noise_rates(const unsigned* k_noise, int* count_sum,
-                           int* num_obs, float* rates, float* log_r,
-                           float* trace, int ch, int S, int T, int t,
-                           float prior_shape, float prior_scale,
-                           cudaStream_t stream);
+// keys [n_t, ch, 3, 2] words (k_boost, k_norm, k_unif of
+// fold_in(k_noise[x], t0 + i)) and draws [n_t, 3, ch, S] (each element's
+// first-round normal and uniform and its boost uniform) of iterations
+// t0 .. t0 + n_t - 1
+cudaError_t bt_noise_rates_draws(const unsigned* k_noise, unsigned* keys,
+                                 float* draws, int ch, int S, int t0, int n_t,
+                                 cudaStream_t stream);
+
+// the update of iteration t from slice `slot` of noise_rates_draws' output
+cudaError_t bt_noise_rates(const unsigned* keys, const float* draws,
+                           int* count_sum, int* num_obs, float* rates,
+                           float* log_r, float* trace, int ch, int S, int T,
+                           int t, int slot, float prior_shape,
+                           float prior_scale, cudaStream_t stream);
 
 // keys [N, 2] uint32 words, alpha and out [N, E]
 cudaError_t bt_gamma_draw(const unsigned* keys, const float* alpha, float* out,

@@ -95,17 +95,18 @@ __device__ __forceinline__ float bt_gamma_uniform0(BtKey k_unif, int e) {
   return bt_uniform(k_unif, (uint32_t)e, 1e-12f, 1.0f);
 }
 
-// ops/sampling.fixed_round_gamma for element e of n (alpha at that element),
-// from the three keys it splits its key into: fold_in(key, 0), (key, 1) and
-// (key, 2), and its first round's normal x0 and uniform u0
-// (bt_gamma_normal0, bt_gamma_uniform0). A caller drawing several elements
-// derives the keys once, and may draw the first round ahead.
-__device__ __forceinline__ float bt_fixed_round_gamma_keys(BtKey k_boost,
-                                                           BtKey k_norm,
-                                                           BtKey k_unif,
-                                                           float alpha, int e,
-                                                           int n, float x0,
-                                                           float u0) {
+// The boost uniform of fixed_round_gamma's element e (alpha < 1).
+__device__ __forceinline__ float bt_gamma_boost_uniform(BtKey k_boost, int e) {
+  return bt_uniform(k_boost, (uint32_t)e, 1e-12f, 1.0f);
+}
+
+// The rejection rounds of ops/sampling.fixed_round_gamma for element e of n
+// (alpha at that element) from its normal and uniform keys, fold_in(key, 1)
+// and (key, 2), and its first round's normal x0 and uniform u0
+// (bt_gamma_normal0, bt_gamma_uniform0): the sample before the boost.
+__device__ __forceinline__ float bt_gamma_rounds(BtKey k_norm, BtKey k_unif,
+                                                 float alpha, int e, int n,
+                                                 float x0, float u0) {
   const int kRounds = 6;
   const float a_eff = alpha < 1.0f ? alpha + 1.0f : alpha;
   const float d = a_eff - 0.333333343f;
@@ -125,17 +126,27 @@ __device__ __forceinline__ float bt_fixed_round_gamma_keys(BtKey k_boost,
       break;
     }
   }
-  if (alpha < 1.0f) {
-    const float ub = bt_uniform(k_boost, (uint32_t)e, 1e-12f, 1.0f);
-    sample = sample * powf(ub, 1.0f / fmaxf(alpha, 1e-12f));
-  }
   return sample;
 }
 
-__device__ __forceinline__ float bt_fixed_round_gamma(BtKey key, float alpha,
-                                                      int e, int n) {
-  const BtKey k_norm = bt_fold_in(key, 1), k_unif = bt_fold_in(key, 2);
-  return bt_fixed_round_gamma_keys(bt_fold_in(key, 0), k_norm, k_unif, alpha,
-                                   e, n, bt_gamma_normal0(k_norm, e),
-                                   bt_gamma_uniform0(k_unif, e));
+// fixed_round_gamma's boost of a sample with alpha < 1, from its uniform ub
+__device__ __forceinline__ float bt_gamma_boost(float sample, float alpha,
+                                                float ub) {
+  return sample * powf(ub, 1.0f / fmaxf(alpha, 1e-12f));
+}
+
+// ops/sampling.fixed_round_gamma for element e of n (alpha at that element),
+// from the three keys it splits its key into: fold_in(key, 0), (key, 1) and
+// (key, 2), and its first round's normal x0 and uniform u0. A caller drawing
+// several elements derives the keys once, and may draw the first round
+// ahead.
+__device__ __forceinline__ float bt_fixed_round_gamma_keys(BtKey k_boost,
+                                                           BtKey k_norm,
+                                                           BtKey k_unif,
+                                                           float alpha, int e,
+                                                           int n, float x0,
+                                                           float u0) {
+  const float sample = bt_gamma_rounds(k_norm, k_unif, alpha, e, n, x0, u0);
+  if (!(alpha < 1.0f)) return sample;
+  return bt_gamma_boost(sample, alpha, bt_gamma_boost_uniform(k_boost, e));
 }

@@ -22,14 +22,19 @@ from ..ops import prng, sampling
 from ..ops.sampling import NEG_INF, sample_frequencies
 
 
-def slot_uniform(key, k, salt):
-    """[..., k] uniforms where element i depends only on (key, i, salt)
-    (gibbs.py:120-137): word 0 of threefry(key, (i, salt)), as (bits >> 8)
-    * 2^-24."""
+def slot_bits(key, k, salt):
+    """[..., k] int64: word 0 of threefry(key, (i, salt)) >> 8 for slot i
+    (gibbs.py:120-137), the 24 bits of slot i's uniform."""
     i = torch.arange(k, dtype=torch.int64, device=key.device)
     y0, _ = prng.threefry_2x32(key[..., 0, None], key[..., 1, None], i,
                                torch.full_like(i, salt))
-    return (y0 >> 8).to(torch.float32) * (2.0 ** -24)
+    return y0 >> 8
+
+
+def slot_uniform(key, k, salt):
+    """[..., k] uniforms where element i depends only on (key, i, salt)
+    (gibbs.py:120-137): slot_bits * 2^-24."""
+    return slot_bits(key, k, salt).to(torch.float32) * (2.0 ** -24)
 
 
 def subsample_masks(base_keys, fold, cluster_id, kmer_valid, rate, salt):
@@ -206,15 +211,48 @@ def noise_rates(k_noise, count_sum, num_obs, rates, log_r, trace, t,
     :2222-2230), in place: rates [ch, S] = fixed_round_gamma(fold_in(
     k_noise[x], t), prior_shape + count_sum) * prior_scale / (num_obs *
     prior_scale + 1); log_r = log(max(rates, 1e-30)); trace[:, t] = rates;
-    count_sum and num_obs zeroed for the next iteration."""
-    shape = prior_shape + count_sum
+    count_sum and num_obs zeroed for the next iteration. The reference for
+    noise_rate_draws and noise_rate_update together."""
+    _rate_update(sampling.fixed_round_gamma(prng.fold_in(k_noise, t),
+                                            prior_shape + count_sum),
+                 count_sum, num_obs, rates, log_r, trace, t, prior_scale)
+
+
+def _rate_update(gamma, count_sum, num_obs, rates, log_r, trace, t,
+                 prior_scale):
+    """rates = gamma * the posterior scale, their logs and trace column;
+    the statistics zeroed."""
     scale = prior_scale / (num_obs * prior_scale + 1.0)
-    rates.copy_(sampling.fixed_round_gamma(prng.fold_in(k_noise, t), shape)
-                * scale)
+    rates.copy_(gamma * scale)
     log_r.copy_(torch.log(torch.clamp_min(rates, 1e-30)))
     trace[:, t] = rates
     count_sum.zero_()
     num_obs.zero_()
+
+
+def noise_rate_draws(k_noise, t0, n, s):
+    """What noise_rates draws from its keys alone, for iterations t0 ..
+    t0 + n - 1 of chains k_noise [ch, 2] and s samples: keys [n, ch, 3, 2]
+    (fixed_round_gamma's split of fold_in(k_noise[x], t): k_boost, k_norm,
+    k_unif) and draws [n, 3, ch, s] (each element's first-round normal and
+    uniform and its boost uniform)."""
+    t = torch.arange(t0, t0 + n, dtype=torch.int64, device=k_noise.device)
+    keys = prng.split(prng.fold_in(k_noise[None], t[:, None]), 3)
+    k_boost, k_norm, k_unif = keys.unbind(-2)
+    draws = torch.stack([prng.normal(k_norm, (s,)),
+                         prng.uniform(k_unif, (s,), minval=1e-12),
+                         prng.uniform(k_boost, (s,), minval=1e-12)], dim=1)
+    return keys, draws
+
+
+def noise_rate_update(keys, draws, count_sum, num_obs, rates, log_r, trace,
+                      t, prior_shape, prior_scale):
+    """noise_rates of iteration t from its slice of noise_rate_draws (keys
+    [ch, 3, 2], draws [3, ch, S]): the gamma's first round and boost read,
+    its later rounds drawn from the keys."""
+    _rate_update(sampling.fixed_round_gamma_split(
+        keys, prior_shape + count_sum, first=draws.unbind(0)),
+        count_sum, num_obs, rates, log_r, trace, t, prior_scale)
 
 
 def gamma_draw(keys, alpha):
@@ -250,31 +288,46 @@ def unpack_bucket(flat_counts, flat_inter_fm, flat_mult, flat_member, lens,
             valid)
 
 
+# memberships (cluster, chain, slot, variant, haplotype) per block of
+# clusters in kmer_cap's plain version
+CAP_BLOCK = 1 << 26
+
+
 def kmer_cap(base_keys, fold, cluster_id, w, member_packed, num_haplotypes,
              cap, salt):
     """Exact per-chain shuffled-order k-mer cap per (haplotype, variant)
-    (gibbs.py:171-231): chain x of cluster c visits its k-mers in the
-    order of a stable argsort of slot_uniform(fold_in(fold_in(base[x],
-    cid[c]), fold[x]), K, salt); a kept k-mer survives iff one of its
-    memberships is still under the cap, and exactly the under-cap
-    memberships are incremented. A sequential loop over K."""
+    (gibbs.py:171-231). Chain x of cluster c visits its k-mers in the order
+    of a stable argsort of slot_uniform(fold_in(fold_in(base[x], cid[c]),
+    fold[x]), K, salt); the JAX scan keeps a kept k-mer iff one of its
+    memberships is still under the cap and counts exactly those, so the
+    counter of column e after t steps is min(cap, the kept k-mers of
+    membership e among the first t visited). Here without the scan: the
+    kept slots sorted by (slot_bits << 32 | slot), an exclusive cumulative
+    count per column over that order, and a kept k-mer survives iff one of
+    its memberships has fewer than cap before it. Clusters in blocks of at
+    most CAP_BLOCK memberships."""
     c, num_chains, k = w.shape
     dev = w.device
     keys = pair_keys(base_keys.to(dev), fold.to(dev), cluster_id)
-    perm = torch.argsort(slot_uniform(keys, k, salt), dim=-1, stable=True)
     v = member_packed.shape[2]
-    counts = torch.zeros((c, num_chains, v, num_haplotypes), dtype=torch.int32,
-                         device=dev)
-    cidx = torch.arange(c, device=dev)[:, None]
-    keep_perm = torch.empty_like(w)
-    for t in range(k):
-        idx = perm[:, :, t]                                     # [C, ch]
-        m = unpack_member_bits(member_packed[cidx, idx], num_haplotypes)
-        sel = torch.gather(w, 2, idx[:, :, None])[..., 0]
-        under = m & sel[:, :, None, None] & (counts < cap)
-        keep_perm[:, :, t] = under.any(dim=(2, 3))
-        counts += under.to(torch.int32)
-    return w.scatter(2, perm, keep_perm)
+    slot = torch.arange(k, dtype=torch.int64, device=dev)
+    step = max(1, CAP_BLOCK // max(1, num_chains * k * v * num_haplotypes))
+    out = torch.zeros_like(w)
+    for c0 in range(0, c, step):
+        wb = w[c0:c0 + step]
+        # kept slots first, in visit order; the others after them
+        order = torch.argsort(torch.where(
+            wb, slot_bits(keys[c0:c0 + step], k, salt) << 32 | slot,
+            (1 << 56) | slot), dim=-1)
+        cidx = torch.arange(wb.shape[0], device=dev)[:, None, None]
+        mem = unpack_member_bits(member_packed[c0:c0 + step][cidx, order],
+                                 num_haplotypes)
+        mem &= torch.gather(wb, 2, order)[..., None, None]
+        before = torch.cumsum(mem, dim=2, dtype=torch.int32) - mem.to(
+            torch.int32)
+        keep = (mem & (before < cap)).any(dim=(3, 4))
+        out[c0:c0 + step] = out[c0:c0 + step].scatter(2, order, keep)
+    return out
 
 
 # float tolerance semantics of Utils::floatCompare / floatLess (Utils.hpp:81-103)

@@ -11,7 +11,9 @@ programs as hand-written kernels (kernels/):
   * the noise-chain step  -> kernels.noise_step (one launch per class and
                              iteration)
   * the joint-chain step  -> kernels.joint_step (the same, with the tally)
-  * the rate update       -> kernels.noise_rates (one launch per iteration)
+  * the rate update       -> kernels.noise_rate_update (one noise_rates
+                             launch per iteration) from
+                             kernels.noise_rate_draws (one per scan)
   * the coupled scan      -> kernels.nested_sweep (all iterations and rank
                              levels, one launch)
 
@@ -607,10 +609,12 @@ def _rate_scan(shards, class_step, k_noise, init_rates, noise_prior,
     int32 statistics of its pooling clusters into its shard's
     count_sum/num_obs [ch, S]; the other shards' statistics are then summed
     exactly, in int32, into the first shard's, one noise_rates launch there
-    draws the next rates and zeroes them, and the rates are copied to the
-    other shards, whose statistics are zeroed too: the psum and the
-    replicated rate draw of the JAX package's mesh programs
-    (parallel/mesh.py:63-89), so every shard count gives the bits of one.
+    draws the next rates and zeroes them (from the key-only draws of every
+    iteration, one noise_rates_draws launch there before the first), and
+    the rates are copied to the other shards, whose statistics are zeroed
+    too: the psum and the replicated rate draw of the JAX package's mesh
+    programs (parallel/mesh.py:63-89), so every shard count gives the bits
+    of one.
     On a card an iteration is kernel launches and copies only, each on its
     device's stream. init_rates [ch, S] may lie on any device. Returns the
     trace [ch, iters, S] on the first shard's device."""
@@ -625,7 +629,8 @@ def _rate_scan(shards, class_step, k_noise, init_rates, noise_prior,
     rates0, log_r0, cs0, no0 = state[0]
     trace = torch.empty((rates0.shape[0], num_iters, rates0.shape[1]),
                         dtype=torch.float32, device=rates0.device)
-    k_noise = kernels.key_words(k_noise, rates0.device)
+    draws = kernels.noise_rate_draws(
+        kernels.key_words(k_noise, rates0.device), trace)
     for t in range(num_iters):
         for setups, (rates, log_r, count_sum, num_obs) in zip(shards, state):
             for su in setups:
@@ -635,8 +640,8 @@ def _rate_scan(shards, class_step, k_noise, init_rates, noise_prior,
             no0.add_(num_obs.to(no0.device))
             count_sum.zero_()
             num_obs.zero_()
-        kernels.noise_rates(k_noise, cs0, no0, rates0, log_r0, trace, t,
-                            prior_shape, prior_scale)
+        kernels.noise_rate_update(draws, cs0, no0, rates0, log_r0, trace, t,
+                                  prior_shape, prior_scale)
         for rates, log_r, _, _ in state[1:]:
             rates.copy_(rates0)
             log_r.copy_(log_r0)

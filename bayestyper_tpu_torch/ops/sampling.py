@@ -21,10 +21,17 @@ NEG_INF = -1e30  # finite stand-in for -inf so masked logits never produce NaN
 def fixed_round_gamma(key, alpha, rounds: int = 6):
     """Gamma(alpha, 1) by Marsaglia-Tsang with a fixed number of rejection
     rounds (sampling.py:35-71). key [..., 2]; alpha [...] + element shape."""
+    return fixed_round_gamma_split(prng.split(key, 3), alpha, rounds)
+
+
+def fixed_round_gamma_split(ks, alpha, rounds: int = 6, first=None):
+    """fixed_round_gamma from its key's split ks [..., 3, 2] (k_boost,
+    k_norm, k_unif). first = (x0, u0, ub), each [...] + element shape: the
+    first round's normal and uniform and the boost uniform drawn ahead from
+    those keys (kernels.noise_rate_draws), used in place of drawing them."""
     alpha = alpha.to(torch.float32)
-    nb = key.dim() - 1
+    nb = ks.dim() - 2
     elem = tuple(alpha.shape[nb:])
-    ks = prng.split(key, 3)
     k_boost, k_norm, k_unif = ks[..., 0, :], ks[..., 1, :], ks[..., 2, :]
 
     a_eff = torch.where(alpha < 1.0, alpha + 1.0, alpha)
@@ -33,6 +40,12 @@ def fixed_round_gamma(key, alpha, rounds: int = 6):
 
     xs = prng.normal(k_norm, (rounds,) + elem)            # [..., R, *elem]
     us = prng.uniform(k_unif, (rounds,) + elem, minval=1e-12)
+    if first is None:
+        ub = prng.uniform(k_boost, elem, minval=1e-12)
+    else:
+        x0, u0, ub = first
+        xs = torch.cat([x0.unsqueeze(nb), xs.narrow(nb, 1, rounds - 1)], nb)
+        us = torch.cat([u0.unsqueeze(nb), us.narrow(nb, 1, rounds - 1)], nb)
     d_r = d.unsqueeze(nb)
     t = 1.0 + c.unsqueeze(nb) * xs
     v = t * (t * t)
@@ -46,10 +59,7 @@ def fixed_round_gamma(key, alpha, rounds: int = 6):
     sample = torch.where(is_first, dv, torch.zeros_like(dv)).sum(dim=nb)
     sample = torch.where(any_ok, sample, a_eff)
 
-    boost = torch.pow(
-        prng.uniform(k_boost, elem, minval=1e-12),
-        1.0 / torch.clamp_min(alpha, 1e-12),
-    )
+    boost = torch.pow(ub, 1.0 / torch.clamp_min(alpha, 1e-12))
     return torch.where(alpha < 1.0, sample * boost, sample)
 
 

@@ -5,7 +5,7 @@
 Phases, one line each; any failure raises and the script exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the thirteen CUDA C++ kernels (six with a global-memory
+  2. build    the fourteen CUDA C++ kernels (six with a global-memory
               variant for shapes past the card's shared memory) for sm_90a,
               through torch.utils.cpp_extension (one compiler per source, in
               parallel);
@@ -40,7 +40,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
   7. joint    joint_step against its plain version on the first chunk of
               every size class, a 350-iteration joint scan over those chunks
               whose every rate update noise_rates replays against its plain
-              version; then genotype_unit_joint (--noise-genotyping) on the
+              version (the scan's rate draws, noise_rates_draws, against
+              theirs; the update timed as 350 launches back to back); then
+              genotype_unit_joint (--noise-genotyping) on the
               main unit at production settings, with the same bars;
   8. coupled  a second unit whose clusters are coupled (13 samples, 50x,
               k = 55; at --scale 2: 300 deletions of 0.6-3 kb over 1-8 SNVs,
@@ -76,13 +78,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
               (24-iteration scans), joint_step per class and the coupled
               scan, each filed under the global-memory variant that
               launched (the H64 classes' LL [S, O] is past shared memory at
-              30 samples); ll_noise_terms at H256 x 30 samples and at H4096
+              30 samples), and kmer_cap on the K32768 class at its own cap,
+              at cap 2 and at rate 1.0 (where pairs sort in device memory);
+              ll_noise_terms at H256 x 30 samples and at H4096
               and bucket_stats past shared memory on inputs drawn on the
               card; then genotype_unit and genotype_unit_joint on it with
               the main bars.
 
 The genotype runs of phases 5-9 are made with the port's plain gamma
-samplers (torch fixed_round_gamma, prng._gamma_one_batch) replaced by
+samplers (torch fixed_round_gamma and its split form,
+prng._gamma_one_batch) replaced by
 functions that raise, so no plain rate update or prior draw runs on a card
 path; each counts launches from zero, and logs the sha256 of the VCF it
 wrote, so that two trees' runs can be compared bit for bit. After the
@@ -157,12 +162,13 @@ SMS = 132
 # unpack_bucket runs for chunks of at least 4 MB, which the main unit has
 # at --scale 2
 MAIN_KERNELS = ("subsample_masks", "ll_noise_terms", "gibbs_sweep",
-                "noise_step", "noise_rates", "bucket_stats", "unpack_bucket",
-                "gamma_draw")
+                "noise_step", "noise_rates", "noise_rates_draws",
+                "bucket_stats", "unpack_bucket", "gamma_draw")
 JOINT_KERNELS = ("subsample_masks", "ll_noise_terms", "joint_step",
-                 "noise_rates", "bucket_stats", "unpack_bucket", "gamma_draw")
+                 "noise_rates", "noise_rates_draws", "bucket_stats",
+                 "unpack_bucket", "gamma_draw")
 COUPLED_KERNELS = ("kmer_cap", "bucket_stats", "nested_sweep", "noise_rates",
-                   "gamma_draw")
+                   "noise_rates_draws", "gamma_draw")
 # the global-memory variants (kernels.GLOBAL) the wide unit's paths launch
 WIDE_KERNELS = ("gibbs_sweep_global", "noise_step_global", "kmer_cap_global",
                 "bucket_stats_global", "nested_sweep_global")
@@ -173,8 +179,8 @@ WIDE_JOINT_KERNELS = ("joint_step_global", "kmer_cap_global",
 MESH_SHARDS = (2, 4)
 # the single phase's forms (kmer_cap only where a class takes the cap)
 SINGLE_KERNELS = ("subsample_masks", "ll_noise_terms", "gibbs_sweep",
-                  "noise_step", "joint_step", "noise_rates", "bucket_stats",
-                  "gamma_draw")
+                  "noise_step", "joint_step", "noise_rates",
+                  "noise_rates_draws", "bucket_stats", "gamma_draw")
 
 # bars against the plain versions
 LL_RTOL, LL_ATOL = 1e-5, 1e-4
@@ -535,6 +541,29 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, name, reps=3):
+    """Device time in ms per launch of the kernels whose name holds `name`
+    over reps calls of fn() after a warm-up call, from torch.profiler's CUDA
+    activity (CUPTI); None where it recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [ev for ev in prof.key_averages() if name in ev.key]
+    total = sum(ev.self_device_time_total for ev in hits)
+    count = sum(ev.count for ev in hits)
+    return total / count / 1e3 if total and count else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
 def bound(nbytes, ops, int_ops=0):
     """(bound_ms, bound_by): the largest of bytes over the HBM rate,
     float32 operations over the scalar float32 rate and integer operations
@@ -578,10 +607,15 @@ def step_ops(n_pairs, s, o, h):
     return flt, n_pairs * THREEFRY_OPS * (STEP_KEYS + s + 3 * h)
 
 
-#   one rate update per (chain, sample): four key derivations, then one
-#   rejection round (most elements accept in the first: the least work) of
-#   two threefry hashes, the erfinv polynomial and two logs
-RATE_OPS = 4 * THREEFRY_OPS + 2 * THREEFRY_OPS + 60
+#   the rate update's key-only draws (noise_rates_draws): four key
+#   derivations per (iteration, chain), then per element the first round's
+#   normal and uniform and the boost uniform (three threefry hashes, the
+#   erfinv polynomial and log1p); the update per (chain, sample): the
+#   shape, scale, d and c, the first round's test (most elements accept
+#   there: the least work) with two logs, the log of the rate
+RATE_KEY_OPS = 4 * THREEFRY_OPS
+RATE_DRAW_OPS, RATE_DRAW_FLOPS = 3 * THREEFRY_OPS, 40
+RATE_OPS = 60
 #   one gamma_draw element (jax.random.gamma): the element key, the first
 #   split, then one outer and one inner rejection round (most elements
 #   accept their first: the least work) of a three-way and a two-way split,
@@ -595,21 +629,24 @@ GAMMA_POW_OPS = 30
 @contextlib.contextmanager
 def no_plain_rate_update():
     """Replace the port's torch gamma samplers, the plain rate update
-    (sampling.fixed_round_gamma) and the plain prior draw
-    (prng._gamma_one_batch), by functions that raise, for the card runs of
-    the genotype paths."""
+    (sampling.fixed_round_gamma and its split form) and the plain prior
+    draw (prng._gamma_one_batch), by functions that raise, for the card runs
+    of the genotype paths."""
     from bayestyper_tpu_torch.ops import prng, sampling
 
-    real = sampling.fixed_round_gamma, prng._gamma_one_batch
+    real = (sampling.fixed_round_gamma, sampling.fixed_round_gamma_split,
+            prng._gamma_one_batch)
 
     def refuse(*args, **kwargs):
         raise RuntimeError("a plain torch gamma sampler ran on a card path")
 
-    sampling.fixed_round_gamma = prng._gamma_one_batch = refuse
+    sampling.fixed_round_gamma = sampling.fixed_round_gamma_split = refuse
+    prng._gamma_one_batch = refuse
     try:
         yield
     finally:
-        sampling.fixed_round_gamma, prng._gamma_one_batch = real
+        (sampling.fixed_round_gamma, sampling.fixed_round_gamma_split,
+         prng._gamma_one_batch) = real
 
 
 # the kernels whose time chip_smoke.py logs on every class of the main unit
@@ -997,10 +1034,12 @@ def check_cap(book, pc, bucket, seed):
 
 
 def check_cap_timed(book, pc, bucket, seed):
-    """kmer_cap against its plain version on the card, at the class's own
-    cap, from the path's split of the subsample key: masks bit-equal;
-    CUDA-event times (the plain version's sequential K-step loop timed
-    once)."""
+    """kmer_cap against its plain version on the card, from the path's
+    split of the subsample key, at the class's own cap and rate, at
+    FORCED_CAP and at rate 1.0 (every valid k-mer kept): masks bit-equal,
+    the cap binding; CUDA-event times (the plain version's timed once), the
+    variant that launched and how many pairs sorted in device memory. The
+    class's own cap and rate give the kernel's row. Returns the lines."""
     from bayestyper_tpu_torch import kernels
     from bayestyper_tpu_torch.model import gibbs
     from bayestyper_tpu_torch.ops import prng
@@ -1008,30 +1047,45 @@ def check_cap_timed(book, pc, bucket, seed):
     cfg = pc.cfg
     base, fold = gibbs._chain_base(prng.prng_key(seed), cfg.num_chains)
     kk = prng.split(base, 2)
-    w0 = kernels.subsample_masks(kk[:, 0], fold, bucket.cluster_id,
-                                 bucket.kmer_valid, cfg.kmer_subsampling_rate,
-                                 gibbs._SUBSAMPLE_SALT)
-    args = (kk[:, 1], fold, bucket.cluster_id, w0, bucket.member,
-            bucket.num_haplotypes, cfg.max_haplotype_variant_kmers,
-            gibbs._CAP_SALT)
-    w_k = kernels.kmer_cap(*args)
-    out = []
-    pms = event_ms(lambda: out.append(kernels.PLAIN["kmer_cap"](*args)))
-    bad = int((w_k != out[0]).sum())
     tag = f"H{pc.h}/K{pc.k}/C{bucket.num_clusters}"
-    book.check(bad == 0, f"kmer_cap {tag}: {bad} entries differ")
-    book.check(int(w_k.sum()) < int(w0.sum()),
-               f"kmer_cap {tag}: cap {cfg.max_haplotype_variant_kmers} did "
-               f"not bind")
-    book.err("kmer_cap", min(bad, 1))
-    ms = cuda_ms(lambda: kernels.kmer_cap(*args), 3)
-    bms, by = bound(*cap_cost(bucket, w0))
-    book.timing("kmer_cap", True, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, library_ms=None, shape=tag)
-    return (f"kmer_cap {tag}, cap {cfg.max_haplotype_variant_kmers}: {bad} "
-            f"of {w_k.numel()} differ; keeps {int(w_k.sum())} of "
-            f"{int(w0.sum())}; {ms:.3f} ms, plain {pms:.3f} ms, bound "
-            f"{bms:.4f} ms ({by})")
+    own = cfg.max_haplotype_variant_kmers
+    lines = []
+    for cap, rate in ((own, cfg.kmer_subsampling_rate),
+                      (FORCED_CAP, cfg.kmer_subsampling_rate), (own, 1.0)):
+        w0 = kernels.subsample_masks(kk[:, 0], fold, bucket.cluster_id,
+                                     bucket.kmer_valid, rate,
+                                     gibbs._SUBSAMPLE_SALT)
+        args = (kk[:, 1], fold, bucket.cluster_id, w0, bucket.member,
+                bucket.num_haplotypes, cap, gibbs._CAP_SALT)
+        before = dict(kernels.LAUNCHES)
+        w_k = kernels.kmer_cap(*args)
+        layout = "/".join(nm for nm in ("kmer_cap", "kmer_cap_global")
+                          if kernels.LAUNCHES[nm] > before[nm])
+        out = []
+        pms = event_ms(lambda: out.append(kernels.PLAIN["kmer_cap"](*args)))
+        bad = int((w_k != out[0]).sum())
+        case = f"{tag} cap {cap} rate {rate}"
+        book.check(bad == 0, f"kmer_cap {case}: {bad} entries differ")
+        book.check(int(w_k.sum()) < int(w0.sum()),
+                   f"kmer_cap {case}: the cap did not bind")
+        book.err("kmer_cap", min(bad, 1))
+        ms = cuda_ms(lambda: kernels.kmer_cap(*args), 3)
+        dms = device_ms(lambda: kernels.kmer_cap(*args), "bt_kmer_cap_kernel")
+        *cost, counts = cap_cost(bucket, w0, cap)
+        bms, by = bound(*cost)
+        path = (cap, rate) == (own, cfg.kmer_subsampling_rate)
+        book.timing("kmer_cap", path, ms=ms, plain_ms=pms, bound_ms=bms,
+                    bound_by=by, library_ms=None, shape=f"{case} ({layout})",
+                    device_ms=dms)
+        lines.append(
+            f"kmer_cap {case} ({layout}): {bad} of {w_k.numel()} differ; "
+            f"keeps {int(w_k.sum())} of {int(w0.sum())}; binds on "
+            f"{counts['binding']} of {counts['pairs']} pairs, at most "
+            f"{counts['max_m']} kept k-mers, {counts['device_sorted']} "
+            f"sorted in device memory; {ms:.3f} ms (device {fmt_ms(dms)}), "
+            f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by})")
+        del w0, w_k, out
+    return lines
 
 
 def check_unpack(book, pc, samples, ploidy, ucounts, opts, dev, bulk):
@@ -1119,8 +1173,9 @@ def kernel_phase(unit, samples, ploidy, opts, dev, scan=None,
             if key_cls == widest:
                 log("  " + check_cap(book, pc, bucket, opts.random_seed))
             if variants and key_cls == longest:
-                log("  " + check_cap_timed(book, pc, bucket,
-                                           opts.random_seed))
+                for line in check_cap_timed(book, pc, bucket,
+                                            opts.random_seed):
+                    log("  " + line)
         del bucket
         torch.cuda.empty_cache()
     book.check(book.osel[0] >= OSEL_AGREE_MIN * book.osel[1],
@@ -1215,9 +1270,10 @@ def check_joint_class(book, pc, su, cv_real, burn_in, bulk):
 
 def record_rate_scan(setups, step, k_noise, init_rates, iters, prior):
     """Iterations 0..iters-1 of a noise or joint scan through the kernels,
-    as gibbs._rate_scan runs them: step(su, t, log_r, rates, cs, no) on
-    every class, then noise_rates, with count_sum/num_obs recorded before
-    every update. Returns (trace [ch, iters, S], recorded)."""
+    as gibbs._rate_scan runs them: the scan's rate draws, then per
+    iteration step(su, t, log_r, rates, cs, no) on every class and the
+    rate update, with count_sum/num_obs recorded before every update.
+    Returns (trace [ch, iters, S], recorded)."""
     from bayestyper_tpu_torch import kernels
 
     dev = init_rates.device
@@ -1227,19 +1283,22 @@ def record_rate_scan(setups, step, k_noise, init_rates, iters, prior):
     cs = torch.zeros((ch, s), dtype=torch.int32, device=dev)
     no = torch.zeros_like(cs)
     trace = torch.empty((ch, iters, s), device=dev)
+    draws = kernels.noise_rate_draws(k_noise, trace)
     recorded = []
     for t in range(iters):
         for su in setups:
             step(su, t, log_r, rates, cs, no)
         recorded.append((cs.clone(), no.clone()))
-        kernels.noise_rates(k_noise, cs, no, rates, log_r, trace, t, *prior)
+        kernels.noise_rate_update(draws, cs, no, rates, log_r, trace, t,
+                                  *prior)
     return trace, recorded
 
 
 def replay_updates(book, k_noise, recorded, trace, prior, label):
-    """Each recorded rate update replayed through noise_rates and its plain
-    version: the kernel's replays equal the scan's trace and zero the
-    statistics, and the plain version agrees within RATES_RTOL on
+    """Each recorded rate update replayed through noise_rates (that
+    iteration's draws, then the update) and its plain version: the
+    kernels' replays equal the scan's trace and zero the statistics, and
+    the plain version agrees within RATES_RTOL on
     RATES_AGREE_MIN of the entries (every flip printed). Returns (flips,
     worst relative difference, entries, the last replay's buffers)."""
     from bayestyper_tpu_torch import kernels
@@ -1286,8 +1345,11 @@ def replay_rates(book, setups, opts, init_rates, dev):
     """A joint scan of opts' iterations over the given classes through the
     kernels, recording count_sum/num_obs before every rate update; then
     each update replayed through noise_rates and its plain version: the
-    replayed kernel equals the scan's trace, and the plain version agrees
-    within RATES_RTOL on RATES_AGREE_MIN of the entries (flips printed)."""
+    replayed kernels equal the scan's trace, and the plain version agrees
+    within RATES_RTOL on RATES_AGREE_MIN of the entries (flips printed);
+    the draws against their plain version (check_rate_draws). The update's
+    time is a run of the scan's launches back to back over their count,
+    beside one launch between two events."""
     from bayestyper_tpu_torch import kernels
     from bayestyper_tpu_torch.model import gibbs
     from bayestyper_tpu_torch.ops import prng
@@ -1308,25 +1370,76 @@ def replay_rates(book, setups, opts, init_rates, dev):
                                        iters, prior)
     flips, worst, n_all, bufs = replay_updates(book, k_noise, recorded, trace,
                                                prior, "joint")
-    # the kernel alone on fixed buffers (it zeroes the statistics it reads;
-    # its work does not depend on them beyond the rejection rounds)
+    draws_line = check_rate_draws(book, k_noise, trace)
+    # the update alone on fixed buffers (it zeroes the statistics it reads;
+    # its work does not depend on them beyond the rejection rounds): one
+    # launch between two events, and a run of `iters` launches back to back
+    # over the scan's iterations divided by their count
+    draws = kernels.noise_rate_draws(k_noise, trace)
     tr = torch.zeros((ch, iters, s), device=dev)
-    ms = cuda_ms(lambda: kernels.noise_rates(
-        k_noise, bufs[2], bufs[3], bufs[0], bufs[1], tr, iters - 1, *prior),
-        20)
+    args = (bufs[2], bufs[3], bufs[0], bufs[1], tr)
+    single_ms = cuda_ms(lambda: kernels.noise_rate_update(
+        draws, *args, iters - 1, *prior), 20)
+
+    def run():
+        for t in range(iters):
+            kernels.noise_rate_update(draws, *args, t, *prior)
+
+    ms = cuda_ms(run, 3) / iters
+    dms = device_ms(run, "bt_noise_rates_kernel")
     pms = cuda_ms(lambda: kernels.PLAIN["noise_rates"](
-        k_noise, bufs[2], bufs[3], bufs[0], bufs[1], tr, iters - 1, *prior),
-        5)
-    nbytes = ch * s * (2 * 4 + 2 * 4 + 3 * 4) + ch * 8
+        k_noise, *args, iters - 1, *prior), 5)
+    nbytes = ch * s * (2 * 4 + 3 * 4 + 2 * 4 + 3 * 4) + ch * 16
     bms, by = bound(nbytes, ch * s * RATE_OPS)
     book.timing("noise_rates", True, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, library_ms=None, shape=f"[{ch}, {s}]")
+                bound_by=by, library_ms=None, shape=f"[{ch}, {s}]",
+                device_ms=dms)
     return (f"noise_rates: {iters} rate updates of [{ch}, {s}] replayed from "
             f"the joint scan's statistics: kernel replays equal the scan's "
             f"trace; {n_all - len(flips)}/{n_all} within {RATES_RTOL} "
             f"relative of the plain version (worst {worst:.3g}, "
-            f"{len(flips)} flips); {ms:.4f} ms, plain {pms:.3f} ms, bound "
-            f"{bms:.6f} ms ({by})")
+            f"{len(flips)} flips); the update {ms:.5f} ms a launch over "
+            f"{iters} back to back ({single_ms:.4f} ms for one between two "
+            f"events; device time {fmt_ms(dms)} a launch), plain "
+            f"{pms:.3f} ms, bound {bms:.6f} ms ({by}); " + draws_line)
+
+
+def check_rate_draws(book, k_noise, trace):
+    """noise_rates_draws for every iteration of trace [ch, T, S] against
+    its plain version: keys equal, floats within RATES_RTOL (XLA's erfinv
+    polynomial and a log1p on the card); CUDA-event times."""
+    from bayestyper_tpu_torch import kernels
+
+    ch, iters, s = trace.shape
+    got = kernels.noise_rate_draws(k_noise, trace)
+    want = kernels.PLAIN["noise_rates_draws"](k_noise, trace)
+    torch.cuda.synchronize()
+    same_keys = torch.equal(got.keys.to(torch.int64) & 0xFFFFFFFF,
+                            want.keys)
+    err = float((got.draws - want.draws).abs().max())
+    close = torch.isclose(got.draws, want.draws, rtol=RATES_RTOL, atol=1e-6)
+    book.check(same_keys, "noise_rates_draws: keys differ from the plain "
+                          "version's")
+    book.check(bool(close.all()), f"noise_rates_draws: "
+               f"{int((~close).sum())} draws differ by more than "
+               f"{RATES_RTOL} relative")
+    book.err("noise_rates_draws", err)
+    ms = cuda_ms(lambda: kernels.noise_rate_draws(k_noise, trace), 5)
+    dms = device_ms(lambda: kernels.noise_rate_draws(k_noise, trace),
+                    "bt_noise_rates_draws_kernel")
+    pms = cuda_ms(lambda: kernels.PLAIN["noise_rates_draws"](k_noise, trace),
+                  3)
+    n = iters * ch * s
+    bms, by = bound(n * 12 + iters * ch * 24 + ch * 8,
+                    n * RATE_DRAW_FLOPS,
+                    iters * ch * RATE_KEY_OPS + n * RATE_DRAW_OPS)
+    book.timing("noise_rates_draws", True, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=None, shape=f"[{iters}, {ch}, {s}]",
+                device_ms=dms)
+    return (f"noise_rates_draws [{iters}, {ch}, {s}]: keys "
+            f"{'equal' if same_keys else 'DIFFER'}, draws within {err:.3g} "
+            f"of the plain version; {ms:.4f} ms (device {fmt_ms(dms)}), "
+            f"plain {pms:.3f} ms, bound {bms:.6f} ms ({by})")
 
 
 def joint_check(book, plan, unit, samples, ploidy, opts, dev):
@@ -1377,11 +1490,16 @@ def joint_check(book, plan, unit, samples, ploidy, opts, dev):
 
 
 def check_rate_launches(launches, iters, label):
-    """noise_rates runs once per iteration of every chain group."""
+    """noise_rates runs once per iteration of every chain group, its draws
+    once per group."""
     n = launches["noise_rates"]
     if n == 0 or n % iters:
         raise RuntimeError(f"{label}: {n} noise_rates launches for "
                            f"{iters}-iteration chain groups")
+    if launches["noise_rates_draws"] != n // iters:
+        raise RuntimeError(f"{label}: {launches['noise_rates_draws']} "
+                           f"noise_rates_draws launches for {n // iters} "
+                           f"chain groups")
     return n // iters
 
 
@@ -1434,23 +1552,43 @@ def joint_run(unit, samples, genome, ploidy, opts, out_path, name, smi,
     return launches
 
 
-def cap_cost(bucket, w0):
-    """(bytes, operations) of one kmer_cap call on the real clusters: the
-    subsample masks of their k-mers in and out, the member words of those
-    k-mers once; per (cluster, chain) with m subsampled k-mers, m keyed
-    slot uniforms, an m log2 m comparison sort of them and the [V, H]
-    membership tests of the m k-mers walked."""
+# the keys kmer_cap sorts in shared memory beside its other arrays at
+# K32768 on a card of 227 KB opt-in shared memory (a power of two): a pair
+# with more kept k-mers sorts in device memory
+CAP_SHARED_KEYS = 16384
+
+
+def cap_cost(bucket, w0, cap):
+    """(bytes, float32 operations, integer operations, counts) of one
+    kmer_cap call, for this call's data: the masks in and out (every slot:
+    the function reads its input and writes its output whole), the member
+    words of the k-mers some chain keeps once; on the real clusters, per
+    (cluster, chain) with m kept k-mers their member words' popcounts, and
+    where some column holds more than cap of them (the cap binds) m keyed
+    slot uniforms, an m log2 m comparison sort and the per-column ranks of
+    the m k-mers. counts: pairs, binding pairs, the most k-mers a binding
+    pair keeps, and the binding pairs past CAP_SHARED_KEYS."""
+    from bayestyper_tpu_torch.model.buckets import unpack_member_bits
+
     real = bucket.cluster_valid
     ch = w0.shape[1]
-    k_r = float(bucket.kmer_valid[real].sum())
-    vh = (bucket.variant_valid[real].sum(dim=1)
-          * bucket.hap_valid[real].sum(dim=1)).double()        # [C_r]
-    m = w0[real].sum(dim=2).double()                           # [C_r, ch]
-    nbytes = 2 * ch * k_r + k_r * bucket.member.shape[2] \
-        * bucket.member.shape[3] * 4 + ch * 12 + int(real.sum()) * 8
-    ops = float((m * THREEFRY_OPS + m * torch.log2(m.clamp_min(1))
-                 + m * vh[:, None] * 4).sum())
-    return nbytes, ops
+    v, words = bucket.member.shape[2:]
+    h = bucket.num_haplotypes
+    w_r = w0[real].to(torch.float32)                            # [C_r, ch, K]
+    mem = unpack_member_bits(bucket.member[real], h).reshape(
+        w_r.shape[0], w_r.shape[2], v * h).to(torch.float32)
+    bind = (torch.bmm(w_r, mem) > cap).any(dim=2)              # [C_r, ch]
+    m = w_r.sum(dim=2).double()
+    held = float(w0[real].any(dim=1).sum())
+    nbytes = 2 * w0.numel() + held * v * words * 4 + ch * 12 \
+        + int(real.sum()) * 8
+    ranked = m * (THREEFRY_OPS + torch.log2(m.clamp_min(1)) + v * h)
+    int_ops = float(torch.where(bind, ranked, m * v * words).sum())
+    m_bind = m[bind]
+    counts = {"pairs": int(m.numel()), "binding": int(bind.sum()),
+              "max_m": int(m_bind.max()) if m_bind.numel() else 0,
+              "device_sorted": int((m_bind > CAP_SHARED_KEYS).sum())}
+    return nbytes, 0, int_ops, counts
 
 
 def valid_shared_rows(setup):
@@ -1666,14 +1804,18 @@ def coupled_phase(unit, samples, ploidy, opts, dev, book):
                f"kmer_cap {tag}: differs from the scan's masks")
     book.err("kmer_cap", min(bad, 1))
     ms = cuda_ms(lambda: kernels.kmer_cap(*cap_args), 5)
+    dms = device_ms(lambda: kernels.kmer_cap(*cap_args), "bt_kmer_cap_kernel")
     pms = event_ms(lambda: kernels.PLAIN["kmer_cap"](*cap_args))
-    bms, by = bound(*cap_cost(bucket, w0))
+    *cost, counts = cap_cost(bucket, w0, cfg.max_haplotype_variant_kmers)
+    bms, by = bound(*cost)
     book.timing("kmer_cap", True, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, library_ms=None, shape=tag)
+                bound_by=by, library_ms=None, shape=tag, device_ms=dms)
     lines.append(f"kmer_cap {tag}, cap {cfg.max_haplotype_variant_kmers}: "
                  f"{bad} of {w_k.numel()} differ; keeps {int(w_k.sum())} of "
-                 f"{int(w0.sum())}; {ms:.3f} ms, plain {pms:.3f} ms, bound "
-                 f"{bms:.4f} ms ({by})")
+                 f"{int(w0.sum())}; binds on {counts['binding']} of "
+                 f"{counts['pairs']} pairs; {ms:.3f} ms (device "
+                 f"{fmt_ms(dms)}), plain {pms:.3f} ms, bound {bms:.4f} ms "
+                 f"({by})")
 
     # -- nested_sweep against its plain version --
     lines += check_nested(book, setup, ch)
@@ -2828,9 +2970,10 @@ def mesh_phase(plan, unit, samples, genome, ploidy, opts, dev, paths,
             f"{'byte-identical to' if same else 'DIFFERS from'} the "
             f"one-device run's ({secs:.1f} s); launches per shard "
             + ", ".join(f"{nm} {c / n:g}" for nm, c in launches.items()
-                        if c and nm not in ("noise_rates", "gamma_draw",
-                                            "unpack_bucket"))
+                        if c and nm not in ("noise_rates", "noise_rates_draws",
+                                            "gamma_draw", "unpack_bucket"))
             + f"; once per run: noise_rates {launches['noise_rates']}, "
+              f"noise_rates_draws {launches['noise_rates_draws']}, "
               f"gamma_draw {launches['gamma_draw']}, unpack_bucket "
               f"{launches['unpack_bucket']}")
         if not same:
@@ -2843,9 +2986,10 @@ def mesh_phase(plan, unit, samples, genome, ploidy, opts, dev, paths,
                     raise RuntimeError(
                         f"mesh: {nm} launched {launches[nm]} times over {n} "
                         f"shards, not {n} x {launches_1[nm]}")
-            if launches["noise_rates"] != launches_1["noise_rates"]:
-                raise RuntimeError("mesh: the rate update did not run once "
-                                   "per iteration")
+            for nm in ("noise_rates", "noise_rates_draws"):
+                if launches[nm] != launches_1[nm]:
+                    raise RuntimeError(f"mesh: {nm} did not run once per "
+                                       f"iteration (draws: per scan)")
 
     # the mesh programs on the bulk class's first chunk
     key = prng.prng_key(opts.random_seed)
@@ -3016,7 +3160,7 @@ def main():
         if book.failures:
             raise RuntimeError("kernels disagree with their plain versions:\n"
                                + "\n".join(book.failures))
-        log(f"joint kernels: joint_step, noise_rates ok "
+        log(f"joint kernels: joint_step, noise_rates, noise_rates_draws ok "
             f"({time.perf_counter() - t0:.1f} s); drawn outcomes agree on "
             f"{book.josel[0]}/{book.josel[1]} (joint_step)")
         joint_path = os.path.join(tmp, "genotypes_joint.vcf")
@@ -3069,6 +3213,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r.get("device_ms"),
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -36,8 +36,14 @@ genotype_unit), for an H64 chunk of 20,000 k-mer slots, and for H256,
 H512, H2048 and H4096 x 2 samples on inputs
 drawn on the card (a tree whose time, extrapolated from H256 -> H512 as a
 power of O, passes BEYOND_STATS_LIMIT_S at H2048 or H4096 reports the case
-as "skipped (O² selection)" and does not run it); and the sha256 of the
-VCFs that genotype_unit and genotype_unit_joint write for the main,
+as "skipped (O² selection)" and does not run it); kmer_cap's masks
+(sha256) and time on the coupled unit's capped level with the most k-mer
+slots, and on the wide unit's K32768 class at its own cap, at cap 2 and at
+subsampling rate 1.0; the rate update as a scan's 350 launches back to
+back (after the scan's draws where the tree has them: its time per
+launch, the whole scan's rate work, the sha256 of the rates and trace of
+a 350-iteration run from statistics drawn from the seed); and the sha256
+of the VCFs that genotype_unit and genotype_unit_joint write for the main,
 coupled and wide units, with their phase seconds. Run parent, change,
 change, parent one after another on one card (each in its own process:
 the two trees' extensions share a name) and compare: equal fingerprints
@@ -66,6 +72,27 @@ def sha(*tensors):
     for t in tensors:
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def device_ms(fn, name, reps=3):
+    """Device time in ms per launch of the kernels whose name holds `name`
+    over reps calls of fn() after a warm-up call, from torch.profiler's CUDA
+    activity; None where it recorded none. (chip_smoke.device_ms, kept here
+    too: a parent tree's chip_smoke may not have it.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [ev for ev in prof.key_averages() if name in ev.key]
+    total = sum(ev.self_device_time_total for ev in hits)
+    count = sum(ev.count for ev in hits)
+    return total / count / 1e3 if total and count else None
 
 
 def file_sha(path):
@@ -499,6 +526,164 @@ def nested_row(cs, unit, samples, ploidy, opts, dev):
     return row
 
 
+def cap_row(cs, tag, args):
+    """kmer_cap on one call's arguments: its masks' sha256 and time."""
+    from bayestyper_tpu_torch import kernels
+
+    row = {"case": tag, "masks_sha": sha(kernels.kmer_cap(*args)),
+           "kept_in": int(args[3].sum()),
+           "kept_out": int(kernels.kmer_cap(*args).sum()),
+           "ms": cs.cuda_ms(lambda: kernels.kmer_cap(*args), 5),
+           "device_ms": device_ms(lambda: kernels.kmer_cap(*args),
+                                  "bt_kmer_cap_kernel")}
+    cs.log(f"  kmer_cap {tag}: {row['ms']:.4f} ms (device {row['device_ms']}"
+           f" ms), keeps {row['kept_out']} of {row['kept_in']}, "
+           f"{row['masks_sha'][:12]}")
+    return row
+
+
+def coupled_cap_row(cs, unit, samples, ploidy, opts, dev):
+    """kmer_cap on the coupled unit's capped level with the most k-mer
+    slots, from the path's keys (chip_smoke.coupled_phase's call)."""
+    from bayestyper_tpu_torch import engine, kernels
+    from bayestyper_tpu_torch.model import gibbs
+    from bayestyper_tpu_torch.ops import prng
+
+    table, counts = engine.gather_sample_counts(unit, samples,
+                                                opts.num_host_threads)
+    ucounts = engine._UnitCounts(unit, table, counts)
+    nested = [fc for fc in unit.compiled if engine._is_coupled(fc)]
+    ni = engine._nested_inputs(nested, samples, ploidy, ucounts, opts, dev)
+    capped = [l for l, cfg in enumerate(ni.cfgs) if cfg.apply_cap]
+    l = max(capped, key=lambda i: ni.buckets[i].mult.shape[:2].numel())
+    bucket, cfg = ni.buckets[l], ni.cfgs[l]
+    sub_key = prng.split(prng.fold_in(prng.prng_key(opts.random_seed), l),
+                         2)[0]
+    base, fold = gibbs._chain_base(sub_key, opts.num_chains)
+    kk = prng.split(base, 2)
+    w0 = kernels.subsample_masks(kk[:, 0], fold, bucket.cluster_id,
+                                 bucket.kmer_valid, cfg.kmer_subsampling_rate,
+                                 gibbs._SUBSAMPLE_SALT)
+    return cap_row(cs, f"coupled level {l} H{bucket.num_haplotypes}/"
+                       f"K{bucket.num_kmers}/C{bucket.num_clusters}",
+                   (kk[:, 1], fold, bucket.cluster_id, w0, bucket.member,
+                    bucket.num_haplotypes, cfg.max_haplotype_variant_kmers,
+                    gibbs._CAP_SALT))
+
+
+def wide_cap_rows(cs, unit, samples, ploidy, opts, dev):
+    """kmer_cap on the first chunk of the wide unit's class with the most
+    k-mer slots (chip_smoke.check_cap_timed's calls): at the class's own
+    cap and rate, at chip_smoke.FORCED_CAP and at rate 1.0."""
+    from bayestyper_tpu_torch import engine, kernels
+    from bayestyper_tpu_torch.model import gibbs
+    from bayestyper_tpu_torch.ops import prng
+
+    table, counts = engine.gather_sample_counts(unit, samples,
+                                                opts.num_host_threads)
+    singles = list(unit.compiled)
+    plan = engine._plan_unit(singles, engine._class_map(singles), opts,
+                             samples, None)
+    pc = plan[max(plan, key=lambda kc: plan[kc].k)]
+    bucket = engine._bucket_cached(
+        None, pc.chunks[0], (pc.c_pad, pc.k, pc.h, pc.v), samples, ploidy,
+        engine._UnitCounts(unit, table, counts), opts.random_seed, dev)
+    cfg = pc.cfg
+    base, fold = gibbs._chain_base(prng.prng_key(opts.random_seed),
+                                   cfg.num_chains)
+    kk = prng.split(base, 2)
+    own = cfg.max_haplotype_variant_kmers
+    rows = []
+    for cap, rate in ((own, cfg.kmer_subsampling_rate),
+                      (cs.FORCED_CAP, cfg.kmer_subsampling_rate), (own, 1.0)):
+        w0 = kernels.subsample_masks(kk[:, 0], fold, bucket.cluster_id,
+                                     bucket.kmer_valid, rate,
+                                     gibbs._SUBSAMPLE_SALT)
+        rows.append(cap_row(
+            cs, f"wide H{pc.h}/K{pc.k}/C{bucket.num_clusters} cap {cap} "
+                f"rate {rate}",
+            (kk[:, 1], fold, bucket.cluster_id, w0, bucket.member,
+             bucket.num_haplotypes, cap, gibbs._CAP_SALT)))
+        del w0
+    return rows
+
+
+# the rate update's scan: iterations, chains, samples (the wide unit's 30)
+RATE_SCAN = (350, 20, 30)
+
+
+def rates_row(cs, dev, seed):
+    """The rate update over a 350-iteration scan of [20, 30] rates: with
+    statistics drawn from the seed refilled before every update, the
+    sha256 of the rates and the trace; then the scan's launches back to
+    back on fixed buffers (the update zeroes its statistics): the time per
+    update launch and of the scan's whole rate work (with the draws' one
+    launch where the tree has noise_rate_draws)."""
+    import numpy as np
+    import torch
+
+    from bayestyper_tpu_torch import kernels
+    from bayestyper_tpu_torch.model import gibbs
+    from bayestyper_tpu_torch.ops import prng
+
+    iters, ch, s = RATE_SCAN
+    prior = (1.0, 0.01)
+    _, k_noise = gibbs._chain_keys(prng.prng_key(seed), ch, 0)
+    k_noise = kernels.key_words(k_noise, dev)
+    rng = np.random.default_rng(seed)
+    stats = torch.from_numpy(np.stack([
+        rng.integers(0, 400, (iters, ch, s)),
+        rng.integers(0, 90_000, (iters, ch, s))], 1).astype(np.int32)).to(dev)
+    paired = hasattr(kernels, "noise_rate_draws")
+    rates = torch.full((ch, s), 2e-3, device=dev)
+    log_r = torch.log(rates)
+    cs_, no = torch.zeros((2, ch, s), dtype=torch.int32, device=dev)
+    trace = torch.zeros((ch, iters, s), device=dev)
+
+    def scan(refill):
+        draws = kernels.noise_rate_draws(k_noise, trace) if paired else None
+        for t in range(iters):
+            if refill:
+                cs_.copy_(stats[t, 0])
+                no.copy_(stats[t, 1])
+            if paired:
+                kernels.noise_rate_update(draws, cs_, no, rates, log_r, trace,
+                                          t, *prior)
+            else:
+                kernels.noise_rates(k_noise, cs_, no, rates, log_r, trace, t,
+                                    *prior)
+        return draws
+
+    scan(True)
+    row = {"case": f"[{iters}, {ch}, {s}]", "paired": paired,
+           "rates_sha": sha(rates, log_r, trace)}
+    row["scan_ms"] = cs.cuda_ms(lambda: scan(False), 3)
+    if paired:
+        draws = kernels.noise_rate_draws(k_noise, trace)
+
+        def updates():
+            for t in range(iters):
+                kernels.noise_rate_update(draws, cs_, no, rates, log_r, trace,
+                                          t, *prior)
+
+        row["draws_ms"] = cs.cuda_ms(
+            lambda: kernels.noise_rate_draws(k_noise, trace), 5)
+        row["draws_device_ms"] = device_ms(
+            lambda: kernels.noise_rate_draws(k_noise, trace),
+            "bt_noise_rates_draws_kernel")
+        row["update_ms"] = cs.cuda_ms(updates, 3) / iters
+        row["update_device_ms"] = device_ms(updates, "bt_noise_rates_kernel")
+    else:
+        row["update_ms"] = row["scan_ms"] / iters
+        row["update_device_ms"] = device_ms(lambda: scan(False),
+                                            "bt_noise_rates_kernel")
+    cs.log(f"  rate update {row['case']}: {row['update_ms']:.5f} ms a launch "
+           f"over {iters} back to back (device {row['update_device_ms']} "
+           f"ms), the scan's rate work {row['scan_ms']:.3f} ms, "
+           f"{row['rates_sha'][:12]}")
+    return row
+
+
 def vcf_rows(cs, unit, samples, genome, ploidy, opts, tmp, label):
     """genotype_unit and genotype_unit_joint on the card: VCF sha256s."""
     import torch
@@ -581,6 +766,7 @@ def main():
         os.path.join(tmp, "coupled"), args.seed, args.scale)
     unit = cluster(genome, samples, vcf_path)
     result["nested"] = nested_row(cs, unit, samples, ploidy, opts, dev)
+    result["cap"] = [coupled_cap_row(cs, unit, samples, ploidy, opts, dev)]
     with coupled_stats_call([]) as calls:
         result["vcf"].update(vcf_rows(cs, unit, samples, genome, ploidy,
                                       opts, tmp, "coupled"))
@@ -593,6 +779,8 @@ def main():
     unit = cluster(genome, samples, vcf_path)
     result["classes"] += class_rows(cs, unit, samples, ploidy, opts, dev,
                                     "wide")
+    result["cap"] += wide_cap_rows(cs, unit, samples, ploidy, opts, dev)
+    result["rates"] = rates_row(cs, dev, args.seed)
     result["beyond_ll"] = beyond_ll_rows(cs, dev, args.seed)
     result["wide_k_stats"] = wide_k_stats_row(cs, dev, args.seed)
     result["beyond_stats"] = beyond_stats_rows(cs, dev, args.seed)

@@ -205,15 +205,24 @@ def test_subsample_masks_matches_plain(cuda):
 
 
 def test_kmer_cap_matches_plain(cuda):
+    """Caps of 3 and 2 (binding) and of K (binding nowhere: the masks of the
+    k-mers that hold a membership)."""
     rng = np.random.default_rng(3)
     chunk = _random_chunk(rng, 4, 300, 40, 3, 2, 5, 4)
     base, fold = tg._chain_base(prng.prng_key(11), 5)
-    args = (base, fold, (torch.arange(4) + 17).to(cuda), chunk["w"].to(cuda),
-            chunk["member"].to(cuda), 40, 3, tg._CAP_SALT)
-    got = kernels.kmer_cap(*args)
-    want = kernels.PLAIN["kmer_cap"](*args)
-    assert torch.equal(got, want)
-    assert int(got.sum()) < int(chunk["w"].sum())
+    w = chunk["w"].to(cuda)
+    member = chunk["member"].to(cuda)
+    for cap in (3, 2, 300):
+        args = (base, fold, (torch.arange(4) + 17).to(cuda), w, member, 40,
+                cap, tg._CAP_SALT)
+        got = kernels.kmer_cap(*args)
+        want = kernels.PLAIN["kmer_cap"](*args)
+        assert torch.equal(got, want), cap
+        held = (member != 0).any(dim=(2, 3))[:, None, :]
+        if cap == 300:
+            assert torch.equal(got, w & held)
+        else:
+            assert int(got.sum()) < int((w & held).sum())
 
 
 def _coupled_setup(dev, h=2, seed=5, ch=4, s=3):
@@ -424,6 +433,40 @@ def test_joint_step_matches_plain(cuda, h):
         torch.testing.assert_close(f_k[pair_same], f_p[pair_same],
                                    rtol=0, atol=1e-5)
     assert agree >= 0.999 * total, (agree, total)
+
+
+def test_noise_rate_draws_and_update_match_plain(cuda):
+    """A 350-iteration scan's rate draws in one launch, then 350 updates
+    from them, against the plain noise_rates per iteration from the same
+    statistics: the draws' keys equal the plain version's, rates within
+    1e-5 relative on >= 99.9% of (iteration, chain, sample) entries, and
+    the trace holds the updates' rates."""
+    rng = np.random.default_rng(12)
+    ch, s, n_t = 20, 30, 350
+    _, k_noise = tg._chain_keys(prng.prng_key(4), ch, 0)
+    words = kernels.key_words(k_noise, cuda)
+    trace = torch.full((ch, n_t, s), -1.0, device=cuda)
+    draws = kernels.noise_rate_draws(words, trace)
+    plain = kernels.PLAIN["noise_rates_draws"](words, trace)
+    assert torch.equal(draws.keys.to(torch.int64) & 0xFFFFFFFF, plain.keys)
+    rates = torch.full((ch, s), 2e-3, device=cuda)
+    log_r = torch.zeros_like(rates)
+    close, total = 0, 0
+    for t in range(n_t):
+        stats = [torch.from_numpy(rng.integers(0, hi, (ch, s))
+                                  .astype(np.int32)).to(cuda)
+                 for hi in (400, 90_000)]
+        cs, no = (x.clone() for x in stats)
+        kernels.noise_rate_update(draws, cs, no, rates, log_r, trace, t, 1.0,
+                                  0.01)
+        r_p = torch.zeros_like(rates)
+        kernels.PLAIN["noise_rates"](words, *stats, r_p, torch.zeros_like(
+            rates), torch.zeros_like(trace), t, 1.0, 0.01)
+        assert not (cs.any() or no.any())
+        close += int(torch.isclose(rates, r_p, rtol=1e-5, atol=0).sum())
+        total += rates.numel()
+        assert torch.equal(trace[:, t], rates)
+    assert close >= 0.999 * total, (close, total)
 
 
 def test_noise_rates_matches_plain(cuda):
@@ -643,18 +686,22 @@ def test_nested_sweep_global_matches_plain(cuda):
 
 
 def test_kmer_cap_global_matches_plain(cuda):
-    """The cap at K = 32,768 slots (the sort keys in device memory): masks
-    bit-equal to the plain version's, and the cap binds."""
+    """The cap at K = 32,768 slots (the global-memory variant): with half
+    the slots kept (a pair's keys fit shared memory or just pass it) and
+    with every slot kept, as at subsampling rate 1.0 (m = K: the keys
+    sorted in device memory): masks bit-equal to the plain version's, and
+    the cap binds."""
     rng = np.random.default_rng(6)
     k = 32768
     chunk = _random_chunk(rng, 2, k, 8, 2, 1, 2, 4)
     base, fold = tg._chain_base(prng.prng_key(13), 2)
-    args = (base, fold, (torch.arange(2) + 5).to(cuda), chunk["w"].to(cuda),
-            chunk["member"].to(cuda), 8, 40, tg._CAP_SALT)
-    got = _launched("kmer_cap", lambda: kernels.kmer_cap(*args))
-    want = kernels.PLAIN["kmer_cap"](*args)
-    assert torch.equal(got, want)
-    assert int(got.sum()) < int(chunk["w"].sum())
+    for w in (chunk["w"], torch.ones_like(chunk["w"])):
+        args = (base, fold, (torch.arange(2) + 5).to(cuda), w.to(cuda),
+                chunk["member"].to(cuda), 8, 40, tg._CAP_SALT)
+        got = _launched("kmer_cap", lambda: kernels.kmer_cap(*args))
+        want = kernels.PLAIN["kmer_cap"](*args)
+        assert torch.equal(got, want)
+        assert int(got.sum()) < int(w.sum())
 
 
 @pytest.mark.parametrize("h, k, is_global", [(64, 20000, False),
