@@ -1,0 +1,7 @@
+"""counts_s: the per-unit mean of genotype_unit's timings["counts_s"], host seconds, over the window's units."""
+
+from portbench.metrics import unit_mean
+
+
+def read(ctx):
+    return unit_mean(ctx, "counts_s")

@@ -1,0 +1,7 @@
+"""coupled_s: the per-unit mean of genotype_unit's timings["coupled_s"], host seconds, over the window's units."""
+
+from portbench.metrics import unit_mean
+
+
+def read(ctx):
+    return unit_mean(ctx, "coupled_s")

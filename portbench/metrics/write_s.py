@@ -1,0 +1,7 @@
+"""write_s: the per-unit mean of genotype_unit's timings["write_s"], host seconds, over the window's units."""
+
+from portbench.metrics import unit_mean
+
+
+def read(ctx):
+    return unit_mean(ctx, "write_s")
