@@ -13,6 +13,18 @@ TINY_CONFIG = {"mix_scale": 0.02, "samples": 4}
 TINY_MIX = {"dup_block": 0}
 
 
+# the tiny unit with one 7-SNV family (H128, past the gather path's 65; the
+# port's plain CPU path at H256 peaks at ~10 GB): the configuration states
+# the judge's reach past it and the sample blooms that raise the cluster
+# phase's path limit from 128 to 512 (4 samples)
+DENSE_MIX = {"kinds": {"snv": 5200, "indel": 800, "dense2": 600,
+                       "dense4": 250, "dense6": 60, "dense7": 50,
+                       "sv_del": 70, "sv_ins": 50}}
+DENSE_CONFIG = {"judge": {"max_haplotypes": 1025},
+                "cluster": {"max_parameter_kmers": 1000000,
+                            "sample_blooms": True}}
+
+
 def tiny_run(cell="r3-bulk-seq", seed=2**33 + 5, settings=None, config=None,
              mix=None, program=None):
     from portbench import run

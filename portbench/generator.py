@@ -4,11 +4,16 @@ one KMC1 k-mer table per sample.
 One generator reads every traffic mix (`mixes/<name>.json`); its `kind`
 picks the placement:
 
-  * "bulk": SNVs, indels, dense clusters of 2-6 SNVs, SV deletions and
-    insertions 420-620 bp apart, and a duplicated 50 kb block;
+  * "bulk": SNVs, indels, dense clusters of N SNVs ("denseN"), SV
+    deletions and insertions 420-620 bp apart, and a duplicated 50 kb
+    block;
   * "coupled": containment families (a deletion over 1-8 SNVs), segmental-
     duplication families (a deletion over an SNV in each of two copies of
     a 200 bp repeat) and one dense family of many SNVs, among isolated SNVs.
+
+A mix may state its SV lengths, "lengths": {"sv_del": [lo, hi], "sv_ins":
+[lo, hi], "contain": [lo, hi]} (LENGTHS holds the ranges of a mix that
+states none); the draws are the same calls in the same order either way.
 
 The placement functions are copies of chip_smoke.py's
 make_genome_and_variants, make_coupled_genome_and_variants,
@@ -48,6 +53,28 @@ def _spread(rng, n, lo, hi):
     return [int(v) for v in rng.permutation(vals)]
 
 
+# the mix's "lengths" a kind may state, [lo, hi] in bp, and today's ranges:
+# bulk deletions and insertions, coupled deletions over 1-8 SNVs (which
+# need 541 bp or more to hold 8 SNVs 60 bp apart)
+LENGTHS = {"sv_del": (150, 400), "sv_ins": (100, 200), "contain": (600, 3000)}
+MIN_LENGTH = {"sv_del": 1, "sv_ins": 1, "contain": 541}
+
+
+def lengths(mix, kind):
+    """The [lo, hi] range of the mix's `kind` of SV: its "lengths" entry,
+    else today's."""
+    stated = mix.get("lengths", {})
+    other = sorted(set(stated) - set(LENGTHS))
+    if other:
+        raise ValueError(f"unknown lengths {other}; a mix may state "
+                         f"{sorted(LENGTHS)}")
+    lo, hi = (int(v) for v in stated.get(kind, LENGTHS[kind]))
+    if not MIN_LENGTH[kind] <= lo <= hi:
+        raise ValueError(f"lengths {kind!r}: [{lo}, {hi}] is not a range "
+                         f"from {MIN_LENGTH[kind]} bp up")
+    return lo, hi
+
+
 def _cycle(rng, n, values):
     """n items of values in turn, in an order from rng."""
     return [values[i] for i in rng.permutation(np.arange(n) % len(values))]
@@ -65,8 +92,10 @@ def make_bulk(rng, mix, scale, k):
     count = {kd: kinds.count(kd) for kd in set(kinds)}
     indel = iter(_cycle(rng, count.get("indel", 0), ["ins", "del"]))
     indel_len = iter(_spread(rng, count.get("indel", 0), 2, 8))
-    del_len = iter(_spread(rng, count.get("sv_del", 0), 150, 400))
-    ins_len = iter(_spread(rng, count.get("sv_ins", 0), 100, 200))
+    del_len = iter(_spread(rng, count.get("sv_del", 0),
+                           *lengths(mix, "sv_del")))
+    ins_len = iter(_spread(rng, count.get("sv_ins", 0),
+                           *lengths(mix, "sv_ins")))
     gaps = _spread(rng, len(kinds), 420, 619)
     dense_max = {kd: int(kd[5:]) * (max(5, (k - 6) // int(kd[5:])) - 1)
                  for kd in count if kd.startswith("dense")}
@@ -128,7 +157,7 @@ def make_coupled(rng, mix, scale, k):
     kinds.append("dense")
     kinds = [kinds[i] for i in rng.permutation(len(kinds))]
     n_contain = kinds.count("contain")
-    spans = iter(_spread(rng, n_contain, 600, 3000))
+    spans = iter(_spread(rng, n_contain, *lengths(mix, "contain")))
     members = iter(_cycle(rng, n_contain, list(range(1, 9))))
     dense_n, dense_gap = mix["dense_snvs"], mix["dense_spacing"]
     sizes = [next(spans) if kd == "contain" else

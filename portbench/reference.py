@@ -43,12 +43,28 @@ The program's outputs are then judged, as a served model's tokens are:
     samples (exact).
 
 Every variant of every group is judged, in every unit of the window. A
-group of more than `max_haplotypes` haplotypes (the coupled mix's 64-SNV
-family and families of 7 or 8 SNVs under a deletion) is judged in local
-windows: the members that no k-mer joins, each window with the members
-whose alleles lie around it (each SNV with its parent deletion), over the
-k-mers of the window alone. The pairs' likelihoods are computed in blocks
-of groups of one shape on the device.
+group of more than `max_haplotypes` haplotypes (judge.json's 65, which a
+configuration may raise: the coupled mix's 64-SNV family and families of 7
+or 8 SNVs under a deletion) is judged in local windows: the members that no
+k-mer joins, each window with the members whose alleles lie around it (each
+SNV with its parent deletion), over the k-mers of the window alone. A
+variant that no group or window of at most `max_haplotypes` holds is not
+judged, and `unjudged_share` counts it.
+
+The pairs' likelihoods are computed in blocks of groups of one shape on the
+device. A group of at most SMALL_HAPLOTYPES haplotypes gathers each pair's
+multiplicity of every k-mer. A larger one (a dense SNV family, a deletion
+over 7 SNVs or more) splits each k-mer's term by its occurrences in the two haplotypes:
+where a k-mer occurs at most once in every haplotype, with f_d its term at
+multiplicity 2 * background + d,
+
+    f(2bg + a + b) = f_0 + (a + b)(f_1 - f_0) + ab(f_2 - 2 f_1 + f_0),
+
+so LL(i, j) = sum f_0 + u_i + u_j + (A diag(f_2 - 2 f_1 + f_0) A^T)_ij per
+sample, A the [H, X] occurrence matrix: one float64 matrix product a
+sample. The k-mers that some haplotype holds twice or more go through the
+gather, in blocks of pairs. The noise k-mers' number and counts are products
+of the same form over the indicator of no occurrence.
 """
 
 from __future__ import annotations
@@ -66,6 +82,12 @@ NOISE_RATE = 1e-3
 # the gap of a call that no pair of haplotypes makes, and of a mean that is
 # not a number (finite, for JSON)
 NO_PAIR_GAP = 1e30
+# groups of at most this many haplotypes gather every pair's multiplicities
+# (the judge's reach before a configuration could raise it); larger ones take
+# the matrix products
+SMALL_HAPLOTYPES = 65
+# the judge settings a configuration may state (its "judge" key)
+CONFIG_KEYS = ("max_haplotypes",)
 _POW = 4 ** np.arange(26, -1, -1, dtype=np.int64)
 
 
@@ -105,13 +127,13 @@ def haplotypes(variants, members, limit):
     """Allele vectors over a group's variants (0 ref, 1 alt, STAR inside an
     alternative deletion), or None past `limit` haplotypes."""
     out = [[]]
-    for vi in members:
+    for m, vi in enumerate(members):
         pos = variants[vi][0]
+        around = [n for n, u in enumerate(members[:m])
+                  if variants[u][0] < pos < variants[u][0] + len(variants[u][1])]
         nxt = []
         for h in out:
-            covered = any(a == 1 and variants[u][0] < pos
-                          < variants[u][0] + len(variants[u][1])
-                          for u, a in zip(members, h))
+            covered = any(h[n] == 1 for n in around)
             nxt.extend([h + [STAR]] if covered else [h + [0], h + [1]])
         if len(nxt) > limit:
             return None
@@ -189,6 +211,8 @@ class Group:
     rows: np.ndarray     # [X] row of each k-mer in the judge's query
     single: bool         # a whole group with no allele inside another's:
                          # the program's noise scan reads it
+    hits: tuple = None   # past SMALL_HAPLOTYPES, in place of occ: the
+                         # (k-mer, haplotype) of every occurrence
 
 
 class Judge:
@@ -201,6 +225,7 @@ class Judge:
         self.device = device
         self.conf = spec["confident_nats"]
         self.budget = spec.get("block_elements", 1 << 25)
+        self.num_variants = len(sim.variants)
         rng = np.random.default_rng(seed)
         seq = sim.seq
         variants = sim.variants
@@ -238,12 +263,15 @@ class Judge:
             inv = np.empty(len(order), np.int64)
             inv[order] = np.cumsum(new) - 1
             first = order[new]
-            occ = np.zeros((len(first), len(lanes)), np.int64)
             col = np.repeat(np.arange(len(lanes)), [len(p[0]) for p in lanes])
-            np.add.at(occ, (inv, col), 1)
+            if len(haps) <= SMALL_HAPLOTYPES:
+                occ = np.zeros((len(first), len(lanes)), np.int64)
+                np.add.at(occ, (inv, col), 1)
+            else:
+                occ = (inv, col)
             q_hi.append(hi[first])
             q_lo.append(lo[first])
-            built.append((members, np.array(haps), occ, base,
+            built.append((members, np.array(haps), occ, base, len(first),
                           whole and STAR not in np.array(haps)))
             base += len(first)
         q_hi = torch.from_numpy(np.concatenate(q_hi)).to(device)
@@ -252,11 +280,18 @@ class Judge:
         genome_n = torch.where(idx >= 0, g_n[idx.clamp(min=0)],
                                torch.zeros_like(idx)).cpu().numpy()
         self.groups = []
-        for members, haps, occ, b0, single in built:
-            x = occ.shape[0]
+        for members, haps, occ, b0, x, single in built:
+            rows = np.arange(b0, b0 + x)
+            if isinstance(occ, tuple):
+                inv, col = occ
+                ref = col == len(haps)
+                bg = genome_n[b0:b0 + x] - np.bincount(inv[ref], minlength=x)
+                self.groups.append(Group(members, haps, None, bg, rows,
+                                         single, (inv[~ref], col[~ref])))
+                continue
             bg = genome_n[b0:b0 + x] - occ[:, -1]
-            self.groups.append(Group(members, haps, occ[:, :-1], bg,
-                                     np.arange(b0, b0 + x), single))
+            self.groups.append(Group(members, haps, occ[:, :-1], bg, rows,
+                                     single))
         # the count distribution's k-mers: genome-unique, outside groups
         outside = np.ones(len(seq) - k + 1, bool)
         for _, a, b in grouped:
@@ -292,6 +327,14 @@ class Judge:
         self.buckets = {}
         for gi, g in enumerate(self.groups):
             self.buckets.setdefault(g.alleles.shape, []).append(gi)
+        # a bucket of large groups holds as many as keep its [G, P, S]
+        # tensors within the block: keys (H, V, first group's place)
+        for shape in [sh for sh in self.buckets if sh[0] > SMALL_HAPLOTYPES]:
+            gis = self.buckets.pop(shape)
+            pairs = shape[0] * (shape[0] + 1) // 2
+            per = max(1, self.budget // (pairs * len(self.mean)))
+            for c in range(0, len(gis), per):
+                self.buckets[(*shape, c)] = gis[c:c + per]
         self._ll = {}
         self._noise = {}
 
@@ -300,6 +343,8 @@ class Judge:
         matrices have this shape, with the pairs' (i, j)."""
         if shape in self._ll:
             return self._ll[shape]
+        if shape[0] > SMALL_HAPLOTYPES:
+            return self._large_ll(shape)
         dev = self.device
         h = shape[0]
         i, j = (torch.from_numpy(t).to(dev) for t in np.triu_indices(h))
@@ -344,6 +389,78 @@ class Judge:
         self._ll[shape] = (out, i, j)
         self._noise[shape] = (n0, c0)
         return self._ll[shape]
+
+    def _large_ll(self, key):
+        """bucket_ll of a bucket of groups past SMALL_HAPLOTYPES, by the
+        matrix products of the module's docstring: group by group, the
+        k-mers that some haplotype holds twice or more in blocks of pairs."""
+        dev = self.device
+        h = key[0]
+        i, j = (torch.from_numpy(t).to(dev) for t in np.triu_indices(h))
+        flat_ij = i * h + j
+        mean = torch.tensor(self.mean, dtype=torch.float64, device=dev)
+        ratio = torch.tensor(self.ratio, dtype=torch.float64, device=dev)
+        gis = self.buckets[key]
+        num_s = len(self.mean)
+        out = torch.zeros(len(gis), len(i), num_s, dtype=torch.float64,
+                          device=dev)
+        n0 = torch.zeros(len(gis), len(i), dtype=torch.float64, device=dev)
+        c0 = torch.zeros_like(out)
+        for gn, gi in enumerate(gis):
+            g = self.groups[gi]
+            x = len(g.rows)
+            kmer, hap = (torch.from_numpy(t).to(dev) for t in g.hits)
+            occ = torch.zeros(x, h, dtype=torch.float64, device=dev)
+            occ.index_put_((kmer, hap),
+                           torch.ones(len(kmer), dtype=torch.float64,
+                                      device=dev), accumulate=True)
+            bg = torch.from_numpy(g.bg).to(dev)
+            c = self.counts[torch.from_numpy(g.rows).to(dev)]     # [X, S]
+            once = occ.max(1).values <= 1
+            # k-mers at most once in every haplotype: a product a sample
+            xb = once.nonzero().squeeze(1)
+            a = occ[xb].T.contiguous()                            # [H, XB]
+            cb, mb = c[xb], 2 * bg[xb]
+            mvals = torch.unique(torch.cat([mb, mb + 1, mb + 2]))
+            tab = torch.stack([_log_count_prob(cb, int(m), mean, ratio)
+                               for m in mvals.tolist()])          # [M, XB, S]
+            at = torch.arange(len(xb), device=dev)
+            f0, f1, f2 = (tab[torch.searchsorted(mvals, mb + d), at]
+                          for d in range(3))                      # [XB, S]
+            u = a @ (f1 - f0)                                     # [H, S]
+            d2 = f2 - 2 * f1 + f0
+            base = f0.sum(0)
+            for s in range(num_s):
+                q = (a * d2[:, s]) @ a.T                          # [H, H]
+                out[gn, :, s] = (base[s] + u[i, s] + u[j, s]
+                                 + q.reshape(-1)[flat_ij])
+            del a, u, d2, tab
+            # k-mers some haplotype holds twice or more: every pair's
+            # multiplicity, in blocks of pairs
+            xm = (~once).nonzero().squeeze(1)
+            if len(xm):
+                om, cm, bm = occ[xm].long(), c[xm], 2 * bg[xm]
+                step = max(1, self.budget // (len(xm) * num_s))
+                for p0 in range(0, len(i), step):
+                    ii, jj = i[p0:p0 + step], j[p0:p0 + step]
+                    mult = bm[:, None] + om[:, ii] + om[:, jj]    # [XM, Pb]
+                    mv = torch.unique(mult)
+                    tm = torch.stack([_log_count_prob(cm, int(m), mean, ratio)
+                                      for m in mv.tolist()])      # [M, XM, S]
+                    at = torch.arange(len(xm), device=dev)[:, None]
+                    out[gn, p0:p0 + step] += tm[torch.searchsorted(mv, mult),
+                                                at].sum(0)
+            # the noise k-mers: no background copy and none in either
+            zero = (occ[bg == 0] == 0).double().T                 # [H, X0]
+            cz = c[bg == 0]
+            n0[gn] = (zero @ zero.T).reshape(-1)[flat_ij]
+            for s in range(num_s):
+                c0[gn, :, s] = ((zero * cz[:, s]) @ zero.T).reshape(-1)[
+                    flat_ij]
+            del occ, zero
+        self._ll[key] = (out, i, j)
+        self._noise[key] = (n0, c0)
+        return self._ll[key]
 
     def noise_rates(self, sub_rate, prior_shape, prior_scale):
         """[S] each sample's noise rate as the program's noise scan should
@@ -435,7 +552,8 @@ class Judge:
         out = {"worst_gap_nats": float(worst),
                "missed_share": missed / max(confident, 1),
                "nb_mean_gap": float(nb), "confident": confident,
-               "calls": calls}
+               "calls": calls,
+               "unjudged_share": self.unjudged / max(self.num_variants, 1)}
         if gpps:
             out["low_gpp_share"] = low / max(confident, 1)
         if units_noise is not None:

@@ -6,17 +6,19 @@ BayesTyper's genotyper: one cell, one run.
 
 Set-up simulates the cell's inputs from --seed on the card (generator.py:
 genome, candidate VCF, one KMC1 table per sample), runs the port's
-cluster phase once and writes the unit file, then warms up with one
-genotype unit of the cell's own shapes. The window then drives the body of
-the port's `genotype` subcommand unit after unit: engine.load_unit, then
-engine.genotype_unit (engine.genotype_unit_joint in a joint mix), each
-with its own random seed from --seed and the unit's index, each writing
-its VCF, until --seconds have passed; the window closes when the unit in
-flight ends. With --trace 1 every unit runs under its own profiler window
-(trace.py) and the run reports the cell's per-layer metrics; with --trace 0
-it reports the end-to-end ones. After the window the plain reference
-(reference.py) judges every unit's VCF, and `correct` says whether each
-compared number kept its limit (judge.json).
+cluster phase once (with each sample's bloom filter where the
+configuration states "sample_blooms") and writes the unit file, then
+warms up with one genotype unit of the cell's own shapes. The window then
+drives the body of the port's `genotype` subcommand unit after unit:
+engine.load_unit, then engine.genotype_unit (engine.genotype_unit_joint in
+a joint mix), each with its own random seed from --seed and the unit's
+index, each writing its VCF, until --seconds have passed; the window
+closes when the unit in flight ends. With --trace 1 every unit runs under
+its own profiler window (trace.py) and the run reports the cell's
+per-layer metrics; with --trace 0 it reports the end-to-end ones. After
+the window the plain reference (reference.py) judges every unit's VCF, and
+`correct` says whether each compared number kept its limit (judge.json; a
+configuration may state the judge's reach, judge_settings).
 
 Everything a cell needs is found by name: BENCHMARK.json's entry names its
 configuration (configs/<name>.json) and its traffic mix
@@ -92,6 +94,36 @@ def read_metric(name, ctx):
     return mod.read(ctx)
 
 
+def judge_settings(cfg):
+    """judge.json with the configuration's "judge" settings over it: only
+    the judge's reach (reference.CONFIG_KEYS); the limits, the control and
+    the cut stay judge.json's for every cell."""
+    from portbench.reference import CONFIG_KEYS
+
+    stated = cfg.get("judge", {})
+    other = sorted(set(stated) - set(CONFIG_KEYS))
+    if other:
+        raise ValueError(f"configuration {cfg.get('name')!r} states judge "
+                         f"settings {other}; it may state only "
+                         f"{list(CONFIG_KEYS)}")
+    return dict(load_json(HERE, "judge.json"), **stated)
+
+
+def sample_blooms(cfg, samples, threads):
+    """Each sample's k-mer bloom filter, loaded as the port's `cluster` and
+    `workflow` subcommands load it (cli._load_sample_blooms: made from its
+    KMC table), where the configuration's "cluster" states
+    "sample_blooms": true; else None. The cluster phase enumerates a
+    cluster's paths whole up to 32 x 4 x the number of blooms (1 without):
+    128 paths without blooms, 1,664 with 13, so that a 10-SNV family keeps
+    its 1,024."""
+    if not cfg["cluster"].get("sample_blooms", False):
+        return None
+    from bayestyper_tpu_torch.cli import _load_sample_blooms
+
+    return _load_sample_blooms(samples, threads)
+
+
 def unit_options(engine, settings, seed, index, joint):
     from portbench.generator import seed_of
 
@@ -151,7 +183,7 @@ def run_cell(cell_name, seed, seconds, trace, device="cuda", settings=None,
     mix = dict(mix_spec, **(mix or {}))
     settings = dict(cfg["genotype"], **(settings or {}))
     program = dict(settings, **(program or {}))
-    judge_spec = load_json(HERE, "judge.json")
+    judge_spec = judge_settings(cfg)
     cuda = torch.device(device).type == "cuda"
     if cuda:
         kernels.build()
@@ -175,6 +207,8 @@ def run_cell(cell_name, seed, seconds, trace, device="cuda", settings=None,
         t0 = time.perf_counter()
         unit = engine.run_cluster_phase(
             genome, samples, sim.vcf_path, ploidy,
+            sample_blooms=sample_blooms(cfg, samples,
+                                        settings["num_host_threads"]),
             kmer_size=cfg["kmer_size"],
             max_parameter_kmers=cfg["cluster"]["max_parameter_kmers"],
             num_threads=settings["num_host_threads"])

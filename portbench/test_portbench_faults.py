@@ -11,25 +11,43 @@ every Gibbs chain reads a tenth of the k-mers the configuration states
 import pytest
 
 from portbench import faults, run
-from portbench.conftest import tiny_run
+from portbench.conftest import DENSE_CONFIG, DENSE_MIX, tiny_run
+
+# the tiny bulk unit, and the same with a 7-SNV family judged whole
+UNITS = {"bulk": {}, "dense": {"config": DENSE_CONFIG, "mix": DENSE_MIX}}
 
 
 def _checks(checks):
     return {name: (value, limit) for name, value, limit in checks}
 
 
-def test_sound_run_is_correct():
-    result, checks = tiny_run()
+@pytest.mark.parametrize("unit", sorted(UNITS))
+def test_sound_run_is_correct(unit):
+    result, checks = tiny_run(**UNITS[unit])
     assert result["correct"], checks
     assert result["failed"] == 0
-    assert _checks(checks)["worst_gap_nats"][0] == 0.0
+    read = _checks(checks)
+    assert read["worst_gap_nats"][0] == 0.0
+    assert read["unjudged_share"][0] == 0.0
 
 
+def test_family_past_the_reach_is_not_judged():
+    """Without the configuration's reach, the 7-SNV family's 128
+    haplotypes pass judge.json's 65, in its one local window too: its
+    variants go unjudged, and the run is not correct."""
+    config = dict(DENSE_CONFIG)
+    del config["judge"]
+    result, checks = tiny_run(config=config, mix=DENSE_MIX)
+    assert not result["correct"], checks
+    assert _checks(checks)["unjudged_share"][0] > 0
+
+
+@pytest.mark.parametrize("unit", sorted(UNITS))
 @pytest.mark.parametrize("fault", ["unchanged", "half", "altered",
                                    "altered_gpp", "skip_noise"])
-def test_fault_turns_correct_false(fault):
+def test_fault_turns_correct_false(fault, unit):
     with faults.FAULTS[fault]() as planted:
-        result, checks = tiny_run()
+        result, checks = tiny_run(**UNITS[unit])
     if fault.startswith("altered"):
         assert planted
     assert not result["correct"], checks

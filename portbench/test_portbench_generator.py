@@ -134,3 +134,75 @@ def test_generator_on_card_equals_cpu_counting(cuda_device):
     assert torch.equal(hi.cpu(), c_hi)
     assert torch.equal(lo.cpu(), c_lo)
     assert torch.equal(mult.cpu(), c_mult)
+
+
+# sha256 over (name, sha256) of every file simulate() writes (candidates.vcf,
+# each sample's .kmc_pre and .kmc_suf), the r3 configuration at scale 1 and
+# 2 samples, from the generator as it stood before mixes could state their
+# SV lengths
+INPUT_SHA256 = {
+    ("bulk", 0): "2812c29347c1dda23dfaba2e1edd239b3a89960b95a6063d73491f88eb4bcffa",
+    ("bulk", 1): "0cf69091c000eb770fd4f6a6745581f8446c028c19e70ab4d5f5fbec7fd382f9",
+    ("bulk", 2): "f69c535589ebb67a75132d9f1797d669e8361aca6c5aa3375edcbdfcba6b5f71",
+    ("bulk-joint", 0): "2812c29347c1dda23dfaba2e1edd239b3a89960b95a6063d73491f88eb4bcffa",
+    ("bulk-joint", 1): "0cf69091c000eb770fd4f6a6745581f8446c028c19e70ab4d5f5fbec7fd382f9",
+    ("bulk-joint", 2): "f69c535589ebb67a75132d9f1797d669e8361aca6c5aa3375edcbdfcba6b5f71",
+    ("coupled", 0): "f73a77097872f2bae62fe45202d592069c917ea463dc47995de17c0fb3113da1",
+    ("coupled", 1): "61f887874604c038c78ea7f7f67a8338ad544492b9c766df5ea3d0f76e5e22b9",
+    ("coupled", 2): "e0879722088fc0f8c5edf98bd60a48d7cdc43ad83fe9229e75b70cdee4841315",
+}
+
+
+def _digest(directory):
+    import hashlib
+    import os
+
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(directory)):
+        h.update(name.encode())
+        with open(os.path.join(directory, name), "rb") as fh:
+            h.update(hashlib.sha256(fh.read()).digest())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("mix,seed", sorted(INPUT_SHA256))
+def test_inputs_are_byte_identical(tmp_path, mix, seed):
+    """A mix that states no lengths makes the inputs it made before mixes
+    could state them, byte for byte."""
+    from portbench import run
+
+    _, _, cfg, spec = run.specs({"bulk": "r3-bulk-seq",
+                                 "bulk-joint": "r3-bulk-joint",
+                                 "coupled": "r3-coupled-seq"}[mix])
+    generator.simulate(str(tmp_path), seed,
+                       dict(cfg, mix_scale=1, samples=2), spec, "cpu")
+    assert _digest(tmp_path) == INPUT_SHA256[(mix, seed)]
+
+
+@pytest.mark.parametrize("kind", ["bulk", "coupled"])
+def test_stated_lengths_bound_the_svs(tmp_path, kind):
+    """A mix's "lengths" set the range its SVs are spread over, end to
+    end; a length it may not state is refused."""
+    cfg = {"kmer_size": 55, "samples": 1, "mix_scale": 1,
+           "coverage": 50.0, "count_variance_ratio": 2.0}
+    if kind == "bulk":
+        mix = {"kind": "bulk", "dup_block": 0,
+               "kinds": {"snv": 20, "sv_del": 9, "sv_ins": 7},
+               "lengths": {"sv_del": [2000, 9000], "sv_ins": [300, 500]}}
+    else:
+        mix = {"kind": "coupled", "dense_snvs": 2, "dense_spacing": 60,
+               "kinds": {"contain": 8, "snv": 10},
+               "lengths": {"contain": [5000, 12000]}}
+    sim = generator.simulate(str(tmp_path), 2**37 + 1, cfg, mix, "cpu")
+    dels = sorted(len(r) - 1 for _, r, a in sim.variants if len(r) > 100)
+    ins = sorted(len(a) - 1 for _, r, a in sim.variants if len(a) > 100)
+    if kind == "bulk":
+        assert dels[0] == 2000 and dels[-1] == 9000 and len(dels) == 9
+        assert ins[0] == 300 and ins[-1] == 500 and len(ins) == 7
+    else:
+        # the dense family's deletion is 200 + 60 bp long
+        assert dels[:1] == [260] and dels[1] == 5000 and dels[-1] == 12000
+        assert len(dels) == 9 and not ins
+    with pytest.raises(ValueError):
+        generator.simulate(str(tmp_path), 1, cfg,
+                           dict(mix, lengths={"snv": [1, 2]}), "cpu")

@@ -116,3 +116,28 @@ def test_every_metric_has_a_reader_and_cells_their_metrics():
                                                      "end_to_end")}
         assert names == {"variants_per_s", "setup_s"}
         assert run.cell_metrics(bench, cell, "per_layer")
+
+
+def test_configuration_states_only_the_judges_reach():
+    """A configuration's "judge" merges over judge.json for its reach
+    alone; the block, limits, control and cut stay judge.json's."""
+    base = run.load_json(run.HERE, "judge.json")
+    assert run.judge_settings({}) == base
+    wide = run.judge_settings({"judge": {"max_haplotypes": 1025}})
+    assert wide == dict(base, max_haplotypes=1025)
+    for key in ("block_elements", "limits", "control", "cut", "gpp_floor"):
+        with pytest.raises(ValueError):
+            run.judge_settings({"name": "x", "judge": {key: {}}})
+
+
+def test_existing_configurations_state_no_new_settings():
+    """The cells' configurations state no judge reach, no blooms and their
+    mixes no lengths: their runs are as they were."""
+    import json
+
+    bench = json.load(open(f"{run.ROOT}/BENCHMARK.json"))
+    for cell in bench["workloads"]:
+        _, _, cfg, mix = run.specs(cell["name"])
+        assert "judge" not in cfg and "lengths" not in mix
+        assert not cfg["cluster"].get("sample_blooms", False)
+        assert run.sample_blooms(cfg, [], 1) is None
